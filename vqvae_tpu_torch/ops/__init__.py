@@ -1,0 +1,32 @@
+from .ell import BucketedGraph, multi_source_shortest_paths_ell
+from .graph import (build_knn_graph, build_knn_graph_auto,
+                    largest_connected_component, symmetric_csr_from_edges)
+from .kmedoids import (assign_points_to_medoids, compute_quantization_error,
+                       fit_kmedoids, kpp_initialization,
+                       kpp_parallel_initialization)
+from .knn import knn_search
+from .knn_select import fused_select, fused_select_reference
+from .riemannian import (build_mlp_decode_fn, edge_lengths_riemannian_auto,
+                         edge_lengths_riemannian_indexed,
+                         make_decoder_image_fn)
+
+__all__ = [
+    "BucketedGraph",
+    "multi_source_shortest_paths_ell",
+    "build_knn_graph",
+    "build_knn_graph_auto",
+    "largest_connected_component",
+    "symmetric_csr_from_edges",
+    "assign_points_to_medoids",
+    "compute_quantization_error",
+    "fit_kmedoids",
+    "kpp_initialization",
+    "kpp_parallel_initialization",
+    "knn_search",
+    "fused_select",
+    "fused_select_reference",
+    "build_mlp_decode_fn",
+    "edge_lengths_riemannian_auto",
+    "edge_lengths_riemannian_indexed",
+    "make_decoder_image_fn",
+]

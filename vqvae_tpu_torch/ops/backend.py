@@ -1,0 +1,79 @@
+"""Shortest-path backend dispatch: device relaxation vs native host Dijkstra.
+
+The port of ``vqvae_tpu/ops/backend.py``. Two backends, identical
+distances:
+
+- ``device``: the bucketed Gauss-Seidel relaxation (``ops/ell.py``) on the
+  GPU — wins at scale (large E x K);
+- ``host``: the native C++ threaded binary-heap Dijkstra
+  (``vqvae_tpu_torch.native``) — wins on small graphs.
+
+``auto`` picks by estimated work (K * E) against ``HOST_WORK_THRESHOLD``.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+from scipy import sparse
+
+from .. import native
+from ..device import resolve_device
+from .ell import BucketedGraph, multi_source_shortest_paths_ell
+from .shortest_paths import EdgeList
+
+
+def _host_threads() -> int:
+    try:
+        return max(1, len(os.sched_getaffinity(0)))
+    except AttributeError:  # non-Linux
+        return os.cpu_count() or 1
+
+
+# below this K*E work estimate the threaded host Dijkstra is taken over the
+# device relaxation. The constant was calibrated on a TPU host against an
+# 8-thread native Dijkstra and scales with the cores this host exposes; the
+# GPU's own host/device crossover is still to be measured (ROADMAP.md).
+HOST_WORK_THRESHOLD = 1.25e8 * _host_threads()
+
+
+def _native_ok() -> bool:
+    return native.available()
+
+
+def multi_source_distances(W_or_graph, sources: np.ndarray,
+                           backend: str = "auto", d0=None,
+                           device_out: bool = False, device=None):
+    """(N, K) float32 distances from each of K sources to all nodes.
+
+    ``W_or_graph``: a scipy sparse matrix or a ``BucketedGraph``.
+    ``d0``: per-entry upper bounds warm-starting the device relaxation
+    (the host Dijkstra, exact from scratch, ignores it). ``device_out``
+    returns the device tensor instead of numpy. ``device`` places the
+    bucketed graph built from a CSR input.
+    """
+    sources = np.asarray(sources)
+    is_csr = sparse.issparse(W_or_graph)
+    if isinstance(W_or_graph, EdgeList):
+        raise NotImplementedError(
+            "the edge-list Bellman-Ford engine is not ported yet; pass a "
+            "scipy CSR matrix or a BucketedGraph")
+    if backend == "auto":
+        if is_csr:
+            work = float(W_or_graph.nnz) * len(sources)
+            backend = ("host" if work < HOST_WORK_THRESHOLD and _native_ok()
+                       else "device")
+        else:
+            backend = "device"
+    if backend == "host":
+        if not is_csr:
+            raise ValueError("host backend needs a scipy CSR graph")
+        return native.dijkstra_multi_source(
+            W_or_graph, sources.astype(np.int32)).T.copy()
+    if backend != "device":
+        raise ValueError(f"unknown backend {backend!r}")
+    graph = (W_or_graph if isinstance(W_or_graph, BucketedGraph)
+             else BucketedGraph.from_csr(W_or_graph,
+                                         device=resolve_device(device)))
+    d = multi_source_shortest_paths_ell(graph, sources, d0=d0)
+    return d if device_out else d.cpu().numpy()

@@ -1,0 +1,221 @@
+"""Decoder-pullback Riemannian edge lengths via ``torch.func.jvp``.
+
+The port of ``vqvae_tpu/ops/riemannian.py``:
+L_ij = 0.5 * (||J(z_i) dz|| + ||J(z_j) dz||), J the Jacobian of
+z -> sigmoid(decoder(z)) flattened to pixels, dz = z_j - z_i. Spatial
+decoders decode each latent vector as a 1x1 grid (the reference
+unsqueezes 2-D z to (B, C, 1, 1)).
+
+Two engines, both gathering edge endpoints on the device from the (N, D)
+latent table and evaluating both endpoint JVPs in one decoder pass:
+
+- ``mlp``: on a 1x1 grid the spatial decoder is exactly an MLP (each
+  transposed conv acts on a fixed 1x1 -> 2x2 -> 4x4 grid), so its dense
+  affine segments are probed once through the real layers and the JVP
+  runs as plain matmuls; a self-check against the conv decoder guards the
+  probe (``_verify_affine_segments``) — when it fails, ``auto`` takes the
+  conv engine, as the JAX package does.
+- ``edgewise``: the JVP of the conv decoder itself.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+_AUTO_DEFAULT_BATCH = 1024
+
+
+def _model_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def make_decoder_image_fn(model, topology: Optional[str] = None) -> Callable:
+    """z -> flattened sigmoid(decoder(z)) for the port's ``models.VAE``.
+
+    ``topology="spatial"``: z (B, C) is decoded as a (B, 1, 1, C) grid;
+    ``"flat"``: z (B, D) feeds the dense decoder. The model rides along as
+    an attribute so ``edge_lengths_riemannian_auto`` can build the
+    linearized decoder."""
+    topology = topology or model.topology
+    model.eval()  # decode with running norm statistics, as JAX's train=False
+
+    def decode_fn(z):
+        if topology == "spatial" and z.ndim == 2:
+            z = z[:, None, None, :]
+        img = torch.sigmoid(model.decode(z))
+        return img.reshape(img.shape[0], -1)
+
+    decode_fn.model = model
+    decode_fn.topology = topology
+    decode_fn.device = _model_device(model)
+    return decode_fn
+
+
+def _nhwc_flat(h: torch.Tensor) -> torch.Tensor:
+    return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+
+
+def _decoder_affine_segments(model) -> Optional[List[Tuple[torch.Tensor,
+                                                            torch.Tensor]]]:
+    """Dense affine segments ``[(M, c), ...]`` of the spatial decoder on
+    1x1 latent grids (NHWC-flattened rows, ReLU between segments, sigmoid
+    applied by the caller), or None when the decoder is not expressible
+    this way (flat topology, group norm, non-f32 weights, other sizes)."""
+    if (getattr(model, "topology", None) != "spatial"
+            or model.norm_type not in ("batch", "none")
+            or model.output_image_size not in (28, 32)
+            or any(p.dtype != torch.float32 for p in model.parameters())):
+        return None
+    dec = model.decoder
+    layers = list(dec.deconv_layers)
+    n_stages = (len(layers) - 1) // 3
+    dev = _model_device(model)
+
+    def probe_affine(fn, d_in: int, in_shape):
+        eye = torch.cat([torch.zeros((1, d_in), device=dev),
+                         torch.eye(d_in, device=dev)])
+        out = fn(eye.reshape(d_in + 1, *in_shape)).reshape(d_in + 1, -1)
+        return out[1:] - out[0], out[0]
+
+    def nchw(h, in_shape):  # NHWC-flat rows -> NCHW grid
+        return h.reshape(h.shape[0], *in_shape).permute(0, 3, 1, 2)
+
+    segs = []
+    hw, ch = (1, 1), int(model.latent_dim)
+    with torch.no_grad():
+        for i in range(n_stages):
+            ct, norm = layers[3 * i], layers[3 * i + 1]
+            in_shape = (*hw, ch)
+
+            def seg(h, ct=ct, norm=norm, in_shape=in_shape, first=(i == 0)):
+                x = nchw(h, in_shape)
+                if first:
+                    x = dec.conv_in(x)
+                return _nhwc_flat(norm(ct(x)))
+
+            segs.append(probe_affine(seg, int(np.prod(in_shape)), in_shape))
+            hw, ch = (2 * hw[0], 2 * hw[1]), ct.out_channels
+        head = layers[-1]
+        in_shape = (*hw, ch)
+        segs.append(probe_affine(
+            lambda h: _nhwc_flat(head(nchw(h, in_shape))),
+            int(np.prod(in_shape)), in_shape))
+    return segs
+
+
+def _mlp_forward(segs, z: torch.Tensor) -> torch.Tensor:
+    h = z.reshape(z.shape[0], -1)
+    for i, (M, c) in enumerate(segs):
+        h = h @ M + c
+        if i < len(segs) - 1:
+            h = torch.relu(h)
+    return torch.sigmoid(h)
+
+
+def _verify_affine_segments(model, segs) -> bool:
+    """Runtime backstop for the linearized decoder: the probed affine+ReLU
+    stack and the real conv decoder must agree on a small random batch, so
+    a model whose geometry drifted from the probe falls back to the conv
+    engine instead of giving a wrong metric."""
+    z = np.random.RandomState(0).randn(8, int(model.latent_dim))
+    z = torch.from_numpy(z.astype(np.float32)).to(_model_device(model))
+    with torch.no_grad():
+        mlp = _mlp_forward(segs, z)
+        conv = torch.sigmoid(model.decode(z[:, None, None, :]))
+        conv = conv.reshape(z.shape[0], -1)
+    return (mlp.shape == conv.shape
+            and bool(torch.allclose(mlp, conv, rtol=1e-3, atol=1e-4)))
+
+
+def build_mlp_decode_fn(model) -> Optional[Callable]:
+    """Linearized spatial decoder z (B, D) -> flattened sigmoid image via
+    dense f32 matmuls (the same map as ``make_decoder_image_fn`` up to
+    float association), or None when the decoder cannot be linearized or
+    the linearization fails its self-check."""
+    segs = _decoder_affine_segments(model)
+    if segs is None or not _verify_affine_segments(model, segs):
+        return None
+
+    def decode_fn(z):
+        return _mlp_forward(segs, z)
+
+    decode_fn.device = _model_device(model)
+    return decode_fn
+
+
+def _mlp_decode_fn_cached(decode_fn) -> Optional[Callable]:
+    if not hasattr(decode_fn, "_mlp_cache"):
+        model = getattr(decode_fn, "model", None)
+        decode_fn._mlp_cache = (build_mlp_decode_fn(model)
+                                if model is not None else None)
+    return decode_fn._mlp_cache
+
+
+def _chunk_norms(decode_fn, za: torch.Tensor, zb: torch.Tensor):
+    """Half-sum of endpoint JVP norms for one edge chunk: both endpoints in
+    one decoder linearization over the concatenated batch."""
+    v = zb - za
+    _, jvp = torch.func.jvp(decode_fn, (torch.cat([za, zb]),),
+                            (torch.cat([v, v]),))
+    norms = torch.linalg.vector_norm(jvp.float(), dim=1)
+    return 0.5 * (norms[:za.shape[0]] + norms[za.shape[0]:])
+
+
+def edge_lengths_riemannian_indexed(decode_fn: Callable, z, rows: np.ndarray,
+                                    cols: np.ndarray, batch_size: int = 4096,
+                                    device=None) -> np.ndarray:
+    """Riemannian lengths of edges (rows[e], cols[e]) with endpoints
+    gathered on the device from the latent table ``z``, ``batch_size``
+    edges per decoder pass. ``device`` defaults to ``decode_fn.device``."""
+    dev = resolve_device(device if device is not None
+                         else getattr(decode_fn, "device", None))
+    rows = np.asarray(rows)
+    e = rows.shape[0]
+    if e == 0:
+        return np.empty((0,), np.float32)
+    z_t = torch.from_numpy(np.ascontiguousarray(z, np.float32)).to(dev)
+    r_t = torch.from_numpy(rows.astype(np.int64)).to(dev)
+    c_t = torch.from_numpy(np.asarray(cols).astype(np.int64)).to(dev)
+    out = torch.empty(e, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for s in range(0, e, batch_size):
+            r, c = r_t[s:s + batch_size], c_t[s:s + batch_size]
+            out[s:s + batch_size] = _chunk_norms(decode_fn, z_t[r], z_t[c])
+    return out.cpu().numpy()
+
+
+def edge_lengths_riemannian_auto(decode_fn: Callable, z: np.ndarray,
+                                 rows: np.ndarray, cols: np.ndarray,
+                                 batch_size: int = _AUTO_DEFAULT_BATCH,
+                                 engine: str = "auto",
+                                 device=None) -> np.ndarray:
+    """Riemannian edge-length engine dispatch.
+
+    ``engine``: ``auto`` — the linearized matmul decoder (``mlp``) when the
+    model supports it and passes its self-check, else the conv
+    ``edgewise`` engine; ``mlp`` / ``edgewise`` force one (``mlp`` raises
+    when the decoder cannot be linearized). The mlp engine's live buffers
+    are small, so at the default ``batch_size`` it takes 16384 edges per
+    pass; an explicit ``batch_size`` is kept.
+    """
+    if engine not in ("auto", "mlp", "edgewise"):
+        raise ValueError(f"unknown Riemannian engine {engine!r}")
+    mlp_fn = None
+    if engine in ("auto", "mlp"):
+        mlp_fn = _mlp_decode_fn_cached(decode_fn)
+        if engine == "mlp" and mlp_fn is None:
+            raise ValueError(
+                "engine=mlp: decoder cannot be linearized (needs spatial "
+                "topology, batch/none norm, f32 weights)")
+    z = np.asarray(z, np.float32)
+    if mlp_fn is not None:
+        mlp_bs = 16384 if batch_size == _AUTO_DEFAULT_BATCH else batch_size
+        return edge_lengths_riemannian_indexed(
+            mlp_fn, z.reshape(z.shape[0], -1), rows, cols,
+            batch_size=mlp_bs, device=device)
+    return edge_lengths_riemannian_indexed(
+        decode_fn, z, rows, cols, batch_size=batch_size, device=device)

@@ -1,0 +1,157 @@
+"""VAE weights in the reference torch format, and the carry-across from JAX.
+
+The port keeps no checkpoint format of its own: VAE weights live in the
+reference implementation's ``{'model_state_dict', 'epoch'}`` ``.pt`` files,
+whose state-dict names the port's ``models.VAE`` uses unchanged. The JAX
+package writes such files with
+``vqvae_tpu.utils.torch_compat.export_reference_vae_checkpoint``; its own
+orbax directories are not readable here.
+
+``vae_state_dict_from_jax`` is the port's own copy of that mapping
+(``vqvae_tpu/utils/torch_compat.py:160-251``), from the JAX ``variables``
+as nested dicts of numpy arrays: HWIO -> OIHW for convs, HWIO -> IOHW with
+a spatial flip for transposed convs (torch's transposed conv is the
+gradient of correlation, flax's correlates with the kernel as given), and
+the (4, 4, C) <-> (C, 4, 4) reorder at the flat bottleneck.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.vae import VAE
+
+# VAE constructor arguments a stage config may carry; training-only keys
+# (free bits, capacity annealing) are not read by the ported stages
+_ARCH_KEYS = ("in_channels", "enc_channels", "dec_channels", "latent_dim",
+              "recon_loss", "output_image_size", "norm_type",
+              "mse_use_sigmoid", "topology")
+
+
+def _t(arr) -> torch.Tensor:
+    return torch.tensor(np.array(arr, np.float32))  # copies: no negative strides
+
+
+def _conv(kernel) -> torch.Tensor:
+    return _t(np.transpose(kernel, (3, 2, 0, 1)))  # HWIO -> OIHW
+
+
+def _conv_t(kernel) -> torch.Tensor:
+    # HWIO -> IOHW with the spatial flip
+    return _t(np.transpose(kernel, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+
+
+def vae_state_dict_from_jax(variables: Mapping, topology: str, enc_channels,
+                            dec_channels, norm_type: str = "batch"
+                            ) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.VAE`` from JAX ``variables`` (nested dicts
+    of numpy arrays: ``{"params": ..., "batch_stats": ...}``)."""
+    norm_type = (norm_type or "none").lower()
+    if norm_type not in ("batch", "none"):
+        raise ValueError(f"norm_type {norm_type!r}: only batch/none carry "
+                         f"across (the reference format has no group norm)")
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    has_norm = norm_type == "batch"
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put_bn(tkey: str, side: str, fkey: str):
+        if has_norm:
+            bn, st = params[side][fkey], stats[side][fkey]
+            sd[f"{tkey}.weight"] = _t(bn["scale"])
+            sd[f"{tkey}.bias"] = _t(bn["bias"])
+            sd[f"{tkey}.running_mean"] = _t(st["mean"])
+            sd[f"{tkey}.running_var"] = _t(st["var"])
+
+    enc = params["encoder"]
+    for i in range(len(enc_channels)):
+        sd[f"encoder.conv_layers.{3 * i}.weight"] = _conv(
+            enc[f"Conv_{i}"]["kernel"])
+        sd[f"encoder.conv_layers.{3 * i}.bias"] = _t(enc[f"Conv_{i}"]["bias"])
+        put_bn(f"encoder.conv_layers.{3 * i + 1}", "encoder", f"BatchNorm_{i}")
+    for name in ("mu", "logvar"):
+        head = enc[f"head_{name}"]
+        if topology == "spatial":
+            sd[f"encoder.fc_{name}.weight"] = _conv(head["kernel"])
+        else:
+            ch = enc_channels[-1]
+            w = np.asarray(head["kernel"]).T  # (latent, 16C) HWC-major
+            latent = w.shape[0]
+            sd[f"encoder.fc_{name}.weight"] = _t(
+                w.reshape(latent, 4, 4, ch).transpose(0, 3, 1, 2)
+                .reshape(latent, -1))
+        sd[f"encoder.fc_{name}.bias"] = _t(head["bias"])
+
+    dec = params["decoder"]
+    if topology == "spatial":
+        sd["decoder.conv_in.weight"] = _conv(dec["conv_in"]["kernel"])
+        sd["decoder.conv_in.bias"] = _t(dec["conv_in"]["bias"])
+        for i in range(2):
+            ct = dec[f"ConvTranspose_{i}"]
+            sd[f"decoder.deconv_layers.{3 * i}.weight"] = _conv_t(ct["kernel"])
+            sd[f"decoder.deconv_layers.{3 * i}.bias"] = _t(ct["bias"])
+            put_bn(f"decoder.deconv_layers.{3 * i + 1}", "decoder",
+                   f"BatchNorm_{i}")
+        sd["decoder.deconv_layers.6.weight"] = _conv_t(dec["out"]["kernel"])
+        sd["decoder.deconv_layers.6.bias"] = _t(dec["out"]["bias"])
+    else:
+        ch = dec_channels[0]
+        w = np.asarray(dec["fc_in"]["kernel"]).T  # (16C, latent) HWC rows
+        latent = w.shape[1]
+        sd["decoder.fc.weight"] = _t(
+            w.reshape(4, 4, ch, latent).transpose(2, 0, 1, 3)
+            .reshape(-1, latent))
+        sd["decoder.fc.bias"] = _t(
+            np.asarray(dec["fc_in"]["bias"]).reshape(4, 4, ch)
+            .transpose(2, 0, 1).reshape(-1))
+        for i, blk in enumerate(("deconv1", "deconv2")):
+            ct = dec[f"ConvTranspose_{i}"]
+            sd[f"decoder.{blk}.0.weight"] = _conv_t(ct["kernel"])
+            sd[f"decoder.{blk}.0.bias"] = _t(ct["bias"])
+            put_bn(f"decoder.{blk}.1", "decoder", f"BatchNorm_{i}")
+        sd["decoder.output_layer.weight"] = _conv_t(dec["out"]["kernel"])
+        sd["decoder.output_layer.bias"] = _t(dec["out"]["bias"])
+    return sd
+
+
+def build_vae(config: Mapping[str, Any]) -> VAE:
+    """``models.VAE`` from a stage config's ``vae`` section."""
+    cfg = {k: config[k] for k in _ARCH_KEYS if k in config}
+    for key in ("enc_channels", "dec_channels"):
+        if key in cfg:
+            cfg[key] = tuple(cfg[key])
+    return VAE(**cfg)
+
+
+def load_vae_state_dict(model: VAE, state_dict: Mapping[str, torch.Tensor]
+                        ) -> VAE:
+    """Strict load, except for BatchNorm's ``num_batches_tracked`` counters,
+    which files written from JAX weights do not carry."""
+    missing, unexpected = model.load_state_dict(state_dict, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise KeyError(f"VAE state dict mismatch: missing {missing}, "
+                       f"unexpected {unexpected}")
+    return model
+
+
+def load_vae_from_checkpoint(path: str | Path, config: Mapping[str, Any],
+                             device: Optional[torch.device] = None) -> VAE:
+    """Rebuild the VAE described by ``config`` and load a reference
+    ``{'model_state_dict', 'epoch'}`` ``.pt`` file into it (eval mode),
+    on ``device`` (``None`` means ``"cuda"``)."""
+    dev = resolve_device(device)
+    path = Path(path)
+    if path.is_dir():
+        raise ValueError(
+            f"{path} is a directory (a JAX orbax checkpoint?); the port reads "
+            f"reference .pt files only — write one from the JAX weights with "
+            f"vqvae_tpu.utils.torch_compat.export_reference_vae_checkpoint")
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    sd = raw.get("model_state_dict", raw.get("model", raw))
+    model = load_vae_state_dict(build_vae(config), sd)
+    return model.to(dev).eval()
