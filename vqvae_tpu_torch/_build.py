@@ -4,18 +4,31 @@ Each source compiles into a plain-C shared library under ``_build/`` next
 to this file (a directory ``.gitignore`` lists), named by a hash of the
 source and the compile command, so an edited source rebuilds and
 concurrent processes never load a half-written file (each writes its own
-temporary file and renames it into place).
+temporary file and renames it into place). ``load_library`` builds a
+source, loads it once per process and binds its C functions with ctypes;
+``load_cuda_library`` does so for a kernel source under ``csrc/`` with
+nvcc for sm_90a.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+# Hopper only; -Xptxas -v reports registers, shared memory and spills
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# name -> (argtypes, restype) of a library's C functions
+Signatures = Dict[str, Tuple[Sequence[type], Optional[type]]]
+_libs: Dict[Path, ctypes.CDLL] = {}
 
 
 def compile_shared(src: Path, cmd: Sequence[str]) -> Tuple[Path, str]:
@@ -41,6 +54,7 @@ def compile_shared(src: Path, cmd: Sequence[str]) -> Tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
+@functools.lru_cache(maxsize=None)
 def nvcc_path() -> str:
     """The CUDA compiler: ``nvcc`` on PATH, else the toolkit default."""
     found = shutil.which("nvcc")
@@ -51,3 +65,27 @@ def nvcc_path() -> str:
         return str(default)
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); the "
                        "CUDA kernels are built from source at first use")
+
+
+def load_library(src: Path, cmd: Sequence[str], signatures: Signatures
+                 ) -> Tuple[ctypes.CDLL, str]:
+    """(library, compiler output) of ``src`` built with ``cmd``: built at
+    first use (the output is empty when a built library was reused) and
+    loaded once per process, with ``signatures`` bound."""
+    lib = _libs.get(src)
+    if lib is not None:
+        return lib, ""
+    path, log = compile_shared(src, cmd)
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+    return _libs.setdefault(src, lib), log
+
+
+def load_cuda_library(source: str, signatures: Signatures
+                      ) -> Tuple[ctypes.CDLL, str]:
+    """``load_library`` for ``csrc/<source>`` with nvcc for sm_90a."""
+    return load_library(CSRC_DIR / source, [nvcc_path(), *NVCC_FLAGS],
+                        signatures)

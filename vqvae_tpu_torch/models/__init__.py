@@ -1,3 +1,5 @@
-from .vae import VAE, Decoder, Encoder
+from .vae import (VAE, BatchNorm, Decoder, Encoder, elbo_loss, flax_init_,
+                  reparameterize)
 
-__all__ = ["VAE", "Decoder", "Encoder"]
+__all__ = ["VAE", "BatchNorm", "Decoder", "Encoder", "elbo_loss",
+           "flax_init_", "reparameterize"]

@@ -1,8 +1,9 @@
 """Convolutional VAEs (flat-latent and spatial-grid) as torch modules.
 
-The port of ``vqvae_tpu/models/vae.py`` (encoder, decoder and ``decode``;
-losses and training come with the VAE-training slice). Submodules carry
-the reference implementation's state-dict names, so a reference
+The port of ``vqvae_tpu/models/vae.py``: encoder, decoder, the training
+forward with ``reparameterize``, ``elbo_loss`` on every branch, and
+``flax_init_``, which draws the flax default initialization. Submodules
+carry the reference implementation's state-dict names, so a reference
 ``{'model_state_dict', 'epoch'}`` checkpoint loads with ``load_state_dict``
 unchanged:
 
@@ -19,13 +20,53 @@ Transposed-conv geometry: the flax padding ``(lo, hi)`` of the JAX
 decoder is torch's ``(k-1-p, k-1-p+op)``, so the 28-px spatial head is
 ``ConvTranspose2d(k=4, s=2, p=3)``, the 32-px head ``p=1`` and the trunk
 ``k4 s2 p1``.
+
+BatchNorm follows flax, not torch: running statistics move by flax's
+momentum 0.99 (torch's 0.01) towards the *biased* batch variance, and the
+padded rows of a last batch count in the batch statistics, as they do
+there (``BatchNorm``).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+# flax's truncated-normal variance scaling divides the target std by the
+# std of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-statistics update.
+
+    Training normalizes by the batch mean and biased variance (as both
+    frameworks do) and then sets ``running = m * running + (1 - m) * batch``
+    with flax's momentum ``m`` = 0.99 and the biased batch variance; torch's
+    own update would use momentum 0.1 and the unbiased variance. Eval mode
+    is ``nn.BatchNorm2d``'s. State-dict names are unchanged.
+    """
+
+    def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.99):
+        super().__init__(ch, eps=eps, momentum=1.0 - momentum)
+        self.flax_momentum = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            mean = x.mean((0, 2, 3))
+            var = x.var((0, 2, 3), unbiased=False)
+            m = self.flax_momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 def _norm(norm_type: str, ch: int) -> nn.Module:
@@ -33,7 +74,7 @@ def _norm(norm_type: str, ch: int) -> nn.Module:
     groups dividing the channel count) / none."""
     norm_type = (norm_type or "none").lower()
     if norm_type == "batch":
-        return nn.BatchNorm2d(ch, eps=1e-5)
+        return BatchNorm(ch, eps=1e-5)
     if norm_type == "group":
         groups = max(1, min(32, ch))
         while ch % groups != 0 and groups > 1:
@@ -127,7 +168,11 @@ class VAE(nn.Module):
                  dec_channels: Sequence[int] = (128, 64, 32),
                  latent_dim: int = 16, recon_loss: str = "bce",
                  output_image_size: int = 28, norm_type: str = "none",
-                 mse_use_sigmoid: bool = True, topology: str = "flat"):
+                 mse_use_sigmoid: bool = True, topology: str = "flat",
+                 free_bits: float = 0.5, capacity_max: float = 15.0,
+                 capacity_anneal_steps: int = 50_000,
+                 capacity_mode: str = "abs",
+                 spatial_free_bits: Optional[float] = None):
         super().__init__()
         if recon_loss not in ("bce", "mse"):
             raise ValueError(f"recon_loss must be bce or mse, got {recon_loss}")
@@ -140,6 +185,13 @@ class VAE(nn.Module):
         self.norm_type = (norm_type or "none").lower()
         self.mse_use_sigmoid = mse_use_sigmoid
         self.topology = topology
+        # training-only: the loss's regularization (flat free bits and
+        # capacity annealing; spatial free bits, off by default)
+        self.free_bits = free_bits
+        self.capacity_max = capacity_max
+        self.capacity_anneal_steps = capacity_anneal_steps
+        self.capacity_mode = capacity_mode
+        self.spatial_free_bits = spatial_free_bits
         self.encoder = Encoder(in_channels, enc_channels, latent_dim,
                                norm_type, topology)
         self.decoder = Decoder(dec_channels, latent_dim, in_channels,
@@ -150,3 +202,131 @@ class VAE(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(z)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """x (B, H, W, C) -> (logits, mu, logvar, z); z is sampled with
+        ``generator`` (on its own device) when one is given, else z = mu."""
+        mu, logvar = self.encoder(x)
+        z = mu if generator is None else reparameterize(mu, logvar,
+                                                        generator)
+        return self.decoder(z), mu, logvar, z
+
+    @property
+    def apply_sigmoid(self) -> bool:
+        return self.recon_loss == "bce" or self.mse_use_sigmoid
+
+    def loss(self, x, x_logits, mu, logvar, *, beta: float,
+             mask: Optional[torch.Tensor] = None, step: int = 0):
+        """``elbo_loss`` with this model's loss settings."""
+        return elbo_loss(
+            x, x_logits, mu, logvar, recon_loss=self.recon_loss,
+            mse_use_sigmoid=self.mse_use_sigmoid, topology=self.topology,
+            beta=beta, mask=mask, free_bits=self.free_bits,
+            capacity_max=self.capacity_max,
+            capacity_anneal_steps=self.capacity_anneal_steps,
+            capacity_mode=self.capacity_mode, step=step,
+            spatial_free_bits=self.spatial_free_bits)
+
+
+def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every weight as flax's defaults do: lecun-normal truncated
+    kernels (std sqrt(1/fan_in) / 0.8796, cut at two std; fan_in =
+    kh*kw*in for convs and transposed convs alike, ``in`` for dense) and
+    zero biases; norm scales 1 and shifts 0. The bits differ from JAX's
+    (another generator); the distributions do not."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                w = mod.weight
+                if isinstance(mod, nn.Linear):
+                    fan_in = w.shape[1]
+                else:  # Conv2d (O, I, kh, kw); ConvTranspose2d (I, O, ...)
+                    cin = w.shape[0 if isinstance(mod, nn.ConvTranspose2d)
+                                  else 1]
+                    fan_in = cin * w.shape[2] * w.shape[3]
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+                # drawn where the generator lives, so every device gets
+                # the same weights from one seed
+                w.copy_(nn.init.trunc_normal_(
+                    torch.empty(w.shape, device=generator.device), 0.0,
+                    std, -2.0 * std, 2.0 * std, generator=generator))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm)):
+                mod.reset_parameters()
+    return model
+
+
+def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+    """mu + eps * exp(logvar / 2), eps ~ N(0, 1) drawn by ``generator`` on
+    its own device and moved to mu's. The engine's generators live on the
+    model's device; a CPU generator gives every device the same noise, as
+    checks of the card against the CPU need."""
+    std = torch.exp(0.5 * logvar)
+    eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
+                      device=generator.device)
+    return mu + eps.to(mu.device) * std
+
+
+def elbo_loss(
+    x: torch.Tensor,
+    x_logits: torch.Tensor,
+    mu: torch.Tensor,
+    logvar: torch.Tensor,
+    *,
+    recon_loss: str,
+    mse_use_sigmoid: bool,
+    topology: str,
+    beta: float,
+    mask: Optional[torch.Tensor] = None,
+    free_bits: Optional[float] = None,
+    capacity_max: float = 0.0,
+    capacity_anneal_steps: int = 0,
+    capacity_mode: str = "abs",
+    step: int = 0,
+    spatial_free_bits: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ELBO with the reference's reduction: per-sample sums, divided by
+    the effective batch size ``mask.sum()`` (``mask`` (B,) drops padded
+    rows). Returns (total, recon, kl) scalars.
+
+    Recon is BCE-with-logits or MSE (on sigmoid(logits) when
+    ``mse_use_sigmoid``); KL is per-dim, clamped below by ``free_bits``
+    (flat) or ``spatial_free_bits`` (spatial, opt-in). Flat models with
+    ``capacity_max`` and ``capacity_anneal_steps`` > 0 regularize
+    |KL - C(step)| ("abs") or max(KL - C(step), 0) ("clipped"), with C
+    ramping linearly to ``capacity_max``.
+    """
+    if mask is None:
+        mask = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    axes = tuple(range(1, x.ndim))
+    if recon_loss == "bce":
+        lg = x_logits
+        per = torch.clamp_min(lg, 0) - lg * x + torch.log1p(
+            torch.exp(-lg.abs()))
+        recon = (per.sum(axes) * mask).sum() / denom
+    else:
+        pred = torch.sigmoid(x_logits) if mse_use_sigmoid else x_logits
+        recon = (((pred - x) ** 2).sum(axes) * mask).sum() / denom
+
+    kl_per = -0.5 * (1.0 + logvar - mu ** 2 - torch.exp(logvar))
+    if topology == "flat" and free_bits is not None:
+        kl_per = torch.clamp_min(kl_per, free_bits)
+    elif topology == "spatial" and spatial_free_bits is not None:
+        kl_per = torch.clamp_min(kl_per, spatial_free_bits)
+    kl = (kl_per.sum(tuple(range(1, mu.ndim))) * mask).sum() / denom
+
+    if topology == "flat" and capacity_max > 0 and capacity_anneal_steps > 0:
+        progress = min(1.0, step / max(1, capacity_anneal_steps))
+        target = capacity_max * progress
+        if capacity_mode == "abs":
+            kl_reg = (kl - target).abs()
+        else:  # "clipped"
+            kl_reg = torch.clamp_min(kl - target, 0.0)
+        total = recon + beta * kl_reg
+    else:
+        total = recon + beta * kl
+    return total, recon, kl

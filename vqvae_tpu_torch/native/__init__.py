@@ -15,56 +15,41 @@ import ctypes
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
-from .._build import compile_shared
+from .._build import load_library
 
 _SRC = Path(__file__).parent / "graph_core.cpp"
 _CMD = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
         "-pthread"]
-_lib: Optional[ctypes.CDLL] = None
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_F32P = ctypes.POINTER(ctypes.c_float)
+_I64, _INT = ctypes.c_int64, ctypes.c_int
+_SIGNATURES = {
+    "vq_dijkstra_multi_source": (
+        [_I64P, _I32P, _F32P, _I64, _I32P, _I64, _F32P, _INT], None),
+    "vq_connected_components": ([_I64P, _I32P, _I64, _I32P], _I64),
+    "vq_ell_fill_bucket": (
+        [_I32P, _F32P, _I64P, _I64P, _I64, _I64, _I64, _I32P, _F32P, _INT],
+        None),
+    "vq_knn_assemble": (
+        [_I64P, _F32P, _I64, _I64, _INT, _INT, _I64P, _I32P, _F32P, _INT],
+        _I64),
+    "vq_edges_assemble": (
+        [_I64P, _I64P, _F32P, _I64, _I64, _I64P, _I32P, _F32P, _INT], _I64),
+}
 
 
 def build() -> str:
     """Build (or reuse) the library; returns the compiler output."""
-    _, log = compile_shared(_SRC, _CMD)
-    _load()
-    return log
+    return load_library(_SRC, _CMD, _SIGNATURES)[1]
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is not None:
-        return _lib
-    path, _ = compile_shared(_SRC, _CMD)
-    lib = ctypes.CDLL(str(path))
-
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    f32p = ctypes.POINTER(ctypes.c_float)
-
-    lib.vq_dijkstra_multi_source.argtypes = [
-        i64p, i32p, f32p, ctypes.c_int64, i32p, ctypes.c_int64, f32p,
-        ctypes.c_int]
-    lib.vq_dijkstra_multi_source.restype = None
-    lib.vq_connected_components.argtypes = [i64p, i32p, ctypes.c_int64, i32p]
-    lib.vq_connected_components.restype = ctypes.c_int64
-    lib.vq_ell_fill_bucket.argtypes = [
-        i32p, f32p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int64, i32p, f32p, ctypes.c_int]
-    lib.vq_ell_fill_bucket.restype = None
-    lib.vq_knn_assemble.argtypes = [
-        i64p, f32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, i64p, i32p, f32p, ctypes.c_int]
-    lib.vq_knn_assemble.restype = ctypes.c_int64
-    lib.vq_edges_assemble.argtypes = [
-        i64p, i64p, f32p, ctypes.c_int64, ctypes.c_int64, i64p, i32p, f32p,
-        ctypes.c_int]
-    lib.vq_edges_assemble.restype = ctypes.c_int64
-    _lib = lib
-    return lib
+    return load_library(_SRC, _CMD, _SIGNATURES)[0]
 
 
 def _threads() -> int:

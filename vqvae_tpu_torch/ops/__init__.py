@@ -1,3 +1,4 @@
+from .assign import nearest_codes, nearest_codes_reference
 from .ell import BucketedGraph, multi_source_shortest_paths_ell
 from .graph import (build_knn_graph, build_knn_graph_auto,
                     largest_connected_component, symmetric_csr_from_edges)
@@ -11,6 +12,8 @@ from .riemannian import (build_mlp_decode_fn, edge_lengths_riemannian_auto,
                          make_decoder_image_fn)
 
 __all__ = [
+    "nearest_codes",
+    "nearest_codes_reference",
     "BucketedGraph",
     "multi_source_shortest_paths_ell",
     "build_knn_graph",

@@ -22,12 +22,11 @@ callers re-rank exactly (``ops/knn.py``).
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
-from .._build import compile_shared, nvcc_path
+from .._build import load_cuda_library
 
 _BIG_I32 = 2**31 - 1
 # the JAX kernel's candidate lane width: k_sel must fit in it
@@ -36,33 +35,21 @@ CAND_LANES = 128
 # per step, bounding its memory at large N
 _REF_BLOCK_ELEMS = 1 << 26
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "knn_select.cu"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_lib: Optional[ctypes.CDLL] = None
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "knn_select_launch": ([_VP, _VP] + [_CI] * 8 + [_VP, _VP, _VP], _CI),
+    "knn_select_error_string": ([_CI], ctypes.c_char_p),
+}
 
 
 def build() -> str:
     """Build (or reuse) the kernel library; returns nvcc's output (with
     ``-Xptxas -v``: registers, shared memory and spills per kernel)."""
-    global _lib
-    path, log = compile_shared(_SRC, [nvcc_path(), *_NVCC_FLAGS])
-    if _lib is None:
-        lib = ctypes.CDLL(str(path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.knn_select_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                                          ci, vp, vp, vp]
-        lib.knn_select_launch.restype = ci
-        lib.knn_select_error_string.argtypes = [ci]
-        lib.knn_select_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return log
+    return load_cuda_library("knn_select.cu", _SIGNATURES)[1]
 
 
 def _library() -> ctypes.CDLL:
-    if _lib is None:
-        build()
-    return _lib
+    return load_cuda_library("knn_select.cu", _SIGNATURES)[0]
 
 
 def _round_up(x: int, m: int) -> int:

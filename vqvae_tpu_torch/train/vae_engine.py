@@ -1,0 +1,265 @@
+"""VAE training engine (flat and spatial topologies) — the port of
+``vqvae_tpu/train/vae_engine.py``, following its per-batch path
+(``run_epoch``).
+
+Semantics kept from the JAX package: one optimizer step per padded, masked
+batch (the padded rows stay in the BatchNorm statistics); the loss uses a
+reparameterized z in training and in evaluation; linear beta warm-up over
+``kl_anneal_epochs``; early stop on the validation loss; ``best.pt`` on
+every improvement and ``best.pt`` + ``latest.pt`` at the end; epoch
+metrics under the reference's names; then, from the best weights, the
+latent dump of both splits in dataset order (mu, logvar and z sampled from
+``seed + 2``) and a reconstruction grid.
+
+Randomness comes from ``torch.Generator``s derived from the seed: the
+initial weights from a CPU generator, so every device starts from the same
+weights; the noise from generators on the engine's device, so a step
+draws it where it is used: training noise from ``(seed + 1, epoch, 0)``,
+evaluation noise from ``(seed + 1, epoch, 1)``. (The card's and the CPU's
+generators give different noise from one seed.) Metrics accumulate on the
+device and are read once per epoch.
+"""
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..data.loader import DataLoader
+from ..device import resolve_device
+from ..eval.metrics import psnr, ssim_simple
+from ..models.vae import VAE, flax_init_, reparameterize
+from ..utils.checkpoint import cpu_state_dict, save_checkpoint
+from ..utils.images import save_image_grid
+from ..utils.latents import save_latents
+from .state import make_optimizer
+
+
+def seeded_generator(device, *entropy: int) -> torch.Generator:
+    """A generator on ``device`` seeded from the integers ``entropy``."""
+    seed = int(np.random.SeedSequence(list(entropy)).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` (through pinned memory, without waiting
+    for the device, on CUDA)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+class VAEEngine:
+    def __init__(
+        self,
+        model: VAE,
+        lr: float,
+        weight_decay: float = 0.0,
+        optimizer: str = "adamw",
+        grad_clip_max_norm: float = 0.0,
+        cosine_t_max: Optional[int] = None,
+        steps_per_epoch: int = 1,
+        seed: int = 0,
+        device=None,
+    ):
+        """``device`` None means CUDA (raises without it)."""
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.seed = seed
+        self.opt = make_optimizer(self.model.parameters(), lr, weight_decay,
+                                  optimizer, grad_clip_max_norm,
+                                  cosine_t_max, steps_per_epoch)
+        self.step = 0  # optimizer updates so far (the loss's capacity step)
+
+    def init_state(self) -> None:
+        """Flax-default weights drawn from ``seed``."""
+        flax_init_(self.model, seeded_generator("cpu", self.seed))
+
+    # -- steps ---------------------------------------------------------------
+    def train_step(self, images: torch.Tensor, mask: torch.Tensor,
+                   beta: float, generator: torch.Generator
+                   ) -> Dict[str, torch.Tensor]:
+        self.model.train()
+        x_logits, mu, logvar, _ = self.model(images, generator)
+        total, recon, kl = self.model.loss(images, x_logits, mu, logvar,
+                                           beta=beta, mask=mask,
+                                           step=self.step)
+        self.opt.zero_grad()
+        total.backward()
+        self.opt.step()
+        self.step += 1
+        return {"loss": total.detach(), "recon": recon.detach(),
+                "kl": kl.detach()}
+
+    @torch.no_grad()
+    def eval_step(self, images: torch.Tensor, mask: torch.Tensor,
+                  beta: float, generator: torch.Generator
+                  ) -> Dict[str, torch.Tensor]:
+        self.model.eval()
+        x_logits, mu, logvar, _ = self.model(images, generator)
+        total, recon, kl = self.model.loss(images, x_logits, mu, logvar,
+                                           beta=beta, mask=mask,
+                                           step=self.step)
+        x_rec = torch.sigmoid(x_logits) if self.model.apply_sigmoid \
+            else x_logits
+        x_rec = torch.clamp(x_rec, 0.0, 1.0)
+        return {"loss": total, "recon": recon, "kl": kl,
+                "psnr": psnr(x_rec, images, mask=mask),
+                "ssim": ssim_simple(x_rec, images, mask=mask),
+                "n": mask.sum()}
+
+    # -- loops ---------------------------------------------------------------
+    def run_epoch(self, loader: DataLoader, train: bool, epoch: int,
+                  beta: float) -> Dict[str, float]:
+        """One epoch; sums stay on the device until its end. Loss, recon
+        and kl are means over batches; eval PSNR/SSIM are weighted by the
+        real rows of each batch."""
+        gen = seeded_generator(self.device, self.seed + 1, epoch,
+                               0 if train else 1)
+        acc: Optional[Dict[str, torch.Tensor]] = None
+        n_batches = 0
+        for images, _, mask in loader.epoch(epoch):
+            x = to_device(images, self.device)
+            m = to_device(mask, self.device)
+            if train:
+                out = self.train_step(x, m, beta, gen)
+            else:
+                out = self.eval_step(x, m, beta, gen)
+                out["psnr"] = out["psnr"] * out["n"]
+                out["ssim"] = out["ssim"] * out["n"]
+            n_batches += 1
+            acc = out if acc is None else {k: acc[k] + out[k] for k in acc}
+        if acc is None:
+            return {}
+        keys = list(acc)
+        vals = dict(zip(keys, torch.stack([acc[k] for k in keys]).tolist()))
+        res = {k: vals[k] / max(n_batches, 1) for k in ("loss", "recon", "kl")}
+        if not train and vals.get("n", 0.0) > 0:
+            res["psnr"] = vals["psnr"] / vals["n"]
+            res["ssim"] = vals["ssim"] / vals["n"]
+        res["steps"] = n_batches
+        return res
+
+    def train(
+        self,
+        train_loader: DataLoader,
+        val_loader: DataLoader,
+        num_epochs: int,
+        early_stop: int = 0,
+        checkpoint_dir: Optional[Path] = None,
+        logger=None,
+        output_dir: Optional[Path] = None,
+        save_latents_flag: bool = True,
+        kl_anneal_epochs: int = 0,
+        beta: float = 1.0,
+    ) -> VAE:
+        """Train; returns the model, holding the best epoch's weights (the
+        ones ``best.pt`` and the latent dumps carry)."""
+        if output_dir is not None:
+            Path(output_dir).mkdir(parents=True, exist_ok=True)
+        best_val = float("inf")
+        no_improve = 0
+        num_pixels = int(np.prod(train_loader.split.image_shape))
+        best_sd = cpu_state_dict(self.model)
+        best_epoch = 0
+        for epoch in range(1, num_epochs + 1):
+            t_ep = time.perf_counter()
+            cur_beta = (beta * min(1.0, epoch / kl_anneal_epochs)
+                        if kl_anneal_epochs > 0 else beta)
+            tr = self.run_epoch(train_loader, True, epoch, cur_beta)
+            t_train = time.perf_counter() - t_ep
+            va = self.run_epoch(val_loader, False, epoch, cur_beta)
+            if logger is not None:
+                logger.log_metrics({
+                    "train_loss": tr["loss"], "train_recon": tr["recon"],
+                    "train_kl": tr["kl"], "val_loss": va["loss"],
+                    "val_recon": va["recon"], "val_kl": va["kl"],
+                    "beta": cur_beta,
+                    "val_psnr": va.get("psnr", 0.0),
+                    "val_ssim": va.get("ssim", 0.0),
+                    "train_recon_per_pixel": tr["recon"] / num_pixels,
+                    "val_recon_per_pixel": va["recon"] / num_pixels,
+                    "train_steps": tr["steps"], "train_seconds": t_train,
+                }, step=epoch)
+            print(f"[vae] epoch {epoch}/{num_epochs} beta={cur_beta:.4f} "
+                  f"train={tr['loss']:.4f} val={va['loss']:.4f} "
+                  f"psnr={va.get('psnr', 0.0):.2f} "
+                  f"ssim={va.get('ssim', 0.0):.4f} "
+                  f"({time.perf_counter() - t_ep:.1f}s; {tr['steps']} steps "
+                  f"in {t_train:.3f}s on {self.device})")
+
+            if va["loss"] < best_val:
+                best_val = va["loss"]
+                no_improve = 0
+                best_sd = cpu_state_dict(self.model)
+                best_epoch = epoch
+                if checkpoint_dir is not None:
+                    save_checkpoint(Path(checkpoint_dir) / "best.pt",
+                                    {"model_state_dict": best_sd,
+                                     "epoch": epoch})
+            else:
+                no_improve += 1
+                if early_stop and no_improve >= early_stop:
+                    print(f"[vae] early stopping at epoch {epoch}")
+                    break
+
+        if checkpoint_dir is not None:
+            ckpt = Path(checkpoint_dir)
+            save_checkpoint(ckpt / "best.pt", {"model_state_dict": best_sd,
+                                               "epoch": best_epoch})
+            save_checkpoint(ckpt / "latest.pt", {
+                "model_state_dict": cpu_state_dict(self.model),
+                "optimizer_state_dict": self.opt.state_dict(),
+                "step": self.step, "epoch": num_epochs})
+        self.model.load_state_dict(best_sd)
+        if save_latents_flag and output_dir is not None:
+            self.dump_latents(train_loader, Path(output_dir) / "latents_train")
+            self.dump_latents(val_loader, Path(output_dir) / "latents_val")
+        if output_dir is not None:
+            self._save_recon_grid(val_loader, Path(output_dir), logger)
+        return self.model
+
+    # -- artifact dumps ------------------------------------------------------
+    @torch.no_grad()
+    def dump_latents(self, loader: DataLoader, out_dir: Path) -> Path:
+        """Encode the whole split in dataset order (so latents align with
+        labels and codes downstream); z is sampled from ``seed + 2``."""
+        self.model.eval()
+        gen = seeded_generator(self.device, self.seed + 2)
+        images = loader.split.images
+        bs = loader.batch_size
+        zs, mus, lvs = [], [], []
+        for s in range(0, images.shape[0], bs):
+            x = to_device(images[s:s + bs], self.device)
+            mu, logvar = self.model.encode(x)
+            z = reparameterize(mu, logvar, gen)
+            zs.append(z.cpu())
+            mus.append(mu.cpu())
+            lvs.append(logvar.cpu())
+        return save_latents(out_dir, torch.cat(zs).numpy(),
+                            torch.cat(mus).numpy(), torch.cat(lvs).numpy(),
+                            loader.split.labels)
+
+    @torch.no_grad()
+    def _save_recon_grid(self, val_loader: DataLoader, output_dir: Path,
+                         logger=None) -> None:
+        self.model.eval()
+        images, _, _ = next(iter(val_loader.epoch(0)))
+        x_logits, _, _, _ = self.model(to_device(images, self.device),
+                                       seeded_generator(self.device, 0))
+        # display space is [0, 1]: sigmoid outputs are already there, while
+        # non-sigmoid reconstructions live in the dataset's normalized space
+        if self.model.apply_sigmoid:
+            x_rec = torch.sigmoid(x_logits).cpu().numpy()
+        else:
+            x_rec = val_loader.split.denormalize(x_logits.cpu().numpy())
+        x = val_loader.split.denormalize(images)
+        grid = np.concatenate([np.clip(x[:8], 0, 1),
+                               np.clip(x_rec[:8], 0, 1)])
+        path = save_image_grid(grid, output_dir / "recon_grid.png", nrow=8)
+        if logger is not None:
+            logger.log_artifact(path)

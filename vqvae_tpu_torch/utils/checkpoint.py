@@ -2,10 +2,15 @@
 
 The port keeps no checkpoint format of its own: VAE weights live in the
 reference implementation's ``{'model_state_dict', 'epoch'}`` ``.pt`` files,
-whose state-dict names the port's ``models.VAE`` uses unchanged. The JAX
-package writes such files with
-``vqvae_tpu.utils.torch_compat.export_reference_vae_checkpoint``; its own
-orbax directories are not readable here.
+whose state-dict names the port's ``models.VAE`` uses unchanged. Training
+writes ``<ckpt_dir>/best.pt`` (weights of the best validation epoch) and
+``<ckpt_dir>/latest.pt`` (which adds ``optimizer_state_dict`` and ``step``
+for ``resume``), each atomically. The JAX package writes such files with
+``vqvae_tpu.utils.torch_compat.export_reference_vae_checkpoint`` and reads
+them with ``load_reference_vae_checkpoint``; its own orbax directories are
+not readable here, but a path that names one (``.../checkpoints/best``,
+as the stage presets do) resolves to the sibling ``best.pt`` when the port
+wrote one.
 
 ``vae_state_dict_from_jax`` is the port's own copy of that mapping
 (``vqvae_tpu/utils/torch_compat.py:160-251``), from the JAX ``variables``
@@ -18,6 +23,8 @@ from __future__ import annotations
 
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional
+
+import os
 
 import numpy as np
 import torch
@@ -139,19 +146,91 @@ def load_vae_state_dict(model: VAE, state_dict: Mapping[str, torch.Tensor]
     return model
 
 
-def load_vae_from_checkpoint(path: str | Path, config: Mapping[str, Any],
-                             device: Optional[torch.device] = None) -> VAE:
-    """Rebuild the VAE described by ``config`` and load a reference
-    ``{'model_state_dict', 'epoch'}`` ``.pt`` file into it (eval mode),
-    on ``device`` (``None`` means ``"cuda"``)."""
-    dev = resolve_device(device)
+def save_checkpoint(path: str | Path, payload: Mapping[str, Any]) -> Path:
+    """``torch.save`` to a temporary file beside ``path``, then rename it
+    into place, so a reader never sees a half-written checkpoint."""
     path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    torch.save(dict(payload), tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def cpu_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A detached CPU copy of ``model.state_dict()``."""
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+
+
+def auto_detect_vae_config(state_dict: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, Any]:
+    """The architecture of a reference-format VAE state dict: in/enc/dec
+    channels, latent dim, norm type, topology and image size (32 px for 3
+    channels, else 28), as ``vqvae_tpu.utils.checkpoint.
+    auto_detect_vae_config`` reads it from a params tree."""
+    enc = sorted((k for k in state_dict
+                  if k.startswith("encoder.conv_layers.")
+                  and k.endswith(".weight")
+                  and state_dict[k].ndim == 4),
+                 key=lambda k: int(k.split(".")[2]))
+    if not enc:
+        raise ValueError("not a VAE state dict: no encoder convs found")
+    enc_channels = tuple(int(state_dict[k].shape[0]) for k in enc)
+    in_channels = int(state_dict[enc[0]].shape[1])
+    norm_type = ("batch" if any(k.endswith("running_var")
+                                for k in state_dict) else "none")
+    mu_w = state_dict["encoder.fc_mu.weight"]
+    topology = "spatial" if mu_w.ndim == 4 else "flat"
+    if topology == "spatial":
+        dec0 = int(state_dict["decoder.conv_in.weight"].shape[0])
+        stages = [f"decoder.deconv_layers.{i}.weight" for i in (0, 3)]
+    else:
+        dec0 = int(state_dict["decoder.fc.weight"].shape[0]) // 16
+        stages = [f"decoder.{b}.0.weight" for b in ("deconv1", "deconv2")]
+    dec_channels = (dec0,) + tuple(int(state_dict[k].shape[1])
+                                   for k in stages)
+    return {
+        "in_channels": in_channels,
+        "enc_channels": enc_channels,
+        "dec_channels": dec_channels[:len(enc_channels)],
+        "latent_dim": int(mu_w.shape[0]),
+        "norm_type": norm_type,
+        "output_image_size": 32 if in_channels == 3 else 28,
+        "topology": topology,
+    }
+
+
+def read_checkpoint(path: str | Path) -> Dict[str, Any]:
+    """The dict in a ``.pt`` checkpoint, on the CPU. A path without the
+    suffix (``.../checkpoints/best`` or ``latest``, the JAX package's
+    names) reads the sibling ``best.pt`` when that file exists."""
+    path = Path(path)
+    sibling = path.with_name(path.name + ".pt")
+    if path.suffix != ".pt" and sibling.is_file():
+        path = sibling
     if path.is_dir():
         raise ValueError(
             f"{path} is a directory (a JAX orbax checkpoint?); the port reads "
             f"reference .pt files only — write one from the JAX weights with "
             f"vqvae_tpu.utils.torch_compat.export_reference_vae_checkpoint")
-    raw = torch.load(path, map_location="cpu", weights_only=True)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_vae_from_checkpoint(path: str | Path,
+                             config: Optional[Mapping[str, Any]],
+                             device: Optional[torch.device] = None) -> VAE:
+    """Rebuild the VAE described by ``config`` (``None``: read from the
+    weights, with the JAX loader's defaults mse + sigmoid) and load a
+    reference ``{'model_state_dict', 'epoch'}`` ``.pt`` file into it (eval
+    mode), on ``device`` (``None`` means ``"cuda"``). ``path`` may name
+    ``.../checkpoints/best`` for the sibling ``best.pt``."""
+    dev = resolve_device(device)
+    raw = read_checkpoint(path)
     sd = raw.get("model_state_dict", raw.get("model", raw))
+    if config is None:
+        config = {**auto_detect_vae_config(sd), "recon_loss": "mse",
+                  "mse_use_sigmoid": True}
     model = load_vae_state_dict(build_vae(config), sd)
     return model.to(dev).eval()
+
