@@ -19,7 +19,11 @@ Phases, each printed as it ends:
      relative of the plain version's k_sel-th value), and kNN recall after
      the exact re-rank against the exact route must be >= 0.999. Times:
      the kernel, the plain version and, as a yardstick, ``torch.cdist`` +
-     ``torch.topk``;
+     ``torch.topk``; K1 also at the stage's 131,072-row launch and against
+     a 262,144-row database that fits in L2, and one K1 call's device time
+     by kernel (``torch.profiler``). Bounds: three TF32 passes on the
+     tensor cores plus a compare, and beside it the first version's
+     CUDA-core f32 bound;
    - K3 at the quality stage's 160,000 rows x 16 against 512 codes (val-
      and medoid-like draws of the same latents) and at a ragged 1,037 x 5
      against 130: at most 1e-4 of the rows may differ, only at near-ties
@@ -76,15 +80,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (dense, 700 W): f32 outside the tensor cores,
-# int32, HBM bandwidth
+# int32, TF32 on the tensor cores, HBM bandwidth
 PEAK_F32 = 67e12
 PEAK_INT32 = 33.5e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 N_NODES = 983_040
 D = 16
 K_SEL = 29           # k + 1 + margin 8 for the stage's k = 20
 Q_ROWS = 16_384
+Q_ROWS_MAIN = 131_072  # query rows of one K1 launch on the codebook stage
+L2_ROWS = 262_144      # a database cut to fit the 50 MB L2
 K3_ROWS = 160_000    # 10,000 val images x 16 cells (codebook health)
 K3_CODES = 512
 K4_N = 196_608       # the gather-min tool's defaults
@@ -224,6 +231,35 @@ def check_kernel(name, zd, n_valid, bins, packed, exact_i, exact_d):
 
     ms = cuda_ms(kernel, 5)
     plain_ms = cuda_ms(plain, 1)
+    extra = ""
+    if packed:
+        # the main path's launch shape, and a database that fits in L2
+        zq_main = zd[:Q_ROWS_MAIN].contiguous()
+        main_ms = cuda_ms(lambda: fused_select(
+            zq_main, zd, n_valid, metric="euclidean", bins=bins,
+            k_sel=K_SEL, packed=packed), 1)
+        del zq_main
+        zl2 = zd[:L2_ROWS].contiguous()
+        l2_ms = cuda_ms(lambda: fused_select(
+            zq, zl2, L2_ROWS, metric="euclidean", bins=bins, k_sel=K_SEL,
+            packed=packed), 5)
+        del zl2
+        extra = (f"; {Q_ROWS_MAIN} query rows {main_ms:.4f} ms; "
+                 f"{L2_ROWS}-row database {l2_ms:.4f} ms")
+        # where one call's device time goes, by kernel
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kernel()
+            torch.cuda.synchronize()
+        parts = sorted(
+            ((ev.key.replace("void ", "").replace("(anonymous namespace)::",
+                                                  "").split("(")[0],
+              ev.device_time_total / 1e3)
+             for ev in prof.key_averages() if ev.device_time_total > 0),
+            key=lambda kv: -kv[1])
+        log(f"{name} device time by kernel: " + "; ".join(
+            f"{key[:48]} {t:.3f} ms" for key, t in parts[:7]))
 
     def library():
         for s in range(0, Q_ROWS, 1024):
@@ -232,17 +268,22 @@ def check_kernel(name, zd, n_valid, bins, packed, exact_i, exact_d):
 
     library_ms = cuda_ms(library, 1)
     # least time for the same work: inputs read once and outputs written
-    # once over HBM, or D+2 f32 multiply-adds per (query, row) pair on the
-    # CUDA cores plus one top-2 compare (int32 keys packed, f32 unpacked)
+    # once over HBM, or the D-term product of every (query, row) pair on
+    # the tensor cores at f32-equivalent precision (three TF32 passes) plus
+    # one top-2 compare on the CUDA cores (int32 keys packed, f32
+    # unpacked). The first version's bound put the D+2 multiply-adds on the
+    # CUDA cores in f32; it is printed beside the new one.
     n_pairs = Q_ROWS * zd.shape[0]
+    compare_ms = n_pairs / (PEAK_INT32 if packed else PEAK_F32) * 1e3
     bytes_ms = (4 * (Q_ROWS + zd.shape[0]) * D + 8 * Q_ROWS * K_SEL) \
         / PEAK_BYTES * 1e3
-    ops_ms = (2 * n_pairs * (D + 2) / PEAK_F32
-              + n_pairs / (PEAK_INT32 if packed else PEAK_F32)) * 1e3
+    ops_ms = 3 * 2 * n_pairs * D / PEAK_TF32 * 1e3 + compare_ms
+    cuda_core_ms = 2 * n_pairs * (D + 2) / PEAK_F32 * 1e3 + compare_ms
     log(f"{name}: rows differ {frac:.2e}, max |kernel - plain| {max_abs}, "
         f"recall {recall:.6f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"cdist+topk {library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} "
-        f"ms ({'bytes' if bytes_ms > ops_ms else 'operations'})")
+        f"ms ({'bytes' if bytes_ms > ops_ms else 'operations'}; CUDA-core "
+        f"f32 bound {max(bytes_ms, cuda_core_ms):.4f} ms){extra}")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",

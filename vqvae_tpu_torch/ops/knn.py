@@ -33,18 +33,45 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _dot_last_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``dot_last`` in numpy: the same f32 rounding of each step."""
+    out = np.zeros(a.shape[:-1], np.float64)
+    for j in range(a.shape[-1]):
+        out = (out + a[..., j].astype(np.float64) * b[..., j]).astype(
+            np.float32).astype(np.float64)
+    return out.astype(np.float32)
+
+
+def _exact_distances(q, all_i, z, metric: str) -> torch.Tensor:
+    """(T, C) exact f32 distances from query rows ``q`` to rows ``all_i``
+    of ``z``. On the CPU in numpy, single-threaded: a run of the CPU parity
+    tests once returned the last third of a 400-row block with distances
+    off by up to 3e-4 relative (the chunk of a three-way split of the
+    (T, C, D) tensors among torch's intra-op threads), so the host path
+    keeps these few operations out of that pool."""
+    if q.device.type != "cpu":
+        cand = z[all_i.long()]                          # (T, C, D)
+        if metric == "euclidean":
+            diff = q[:, None, :] - cand
+            return torch.sqrt(torch.clamp_min(dot_last(diff, diff), 0.0))
+        return 1.0 - dot_last(q[:, None, :].expand_as(cand), cand)
+    qn, cand = q.numpy(), z.numpy()[all_i.numpy()]
+    if metric == "euclidean":
+        diff = qn[:, None, :] - cand
+        exact = np.sqrt(np.maximum(_dot_last_np(diff, diff), 0.0))
+    else:
+        exact = 1.0 - _dot_last_np(np.broadcast_to(qn[:, None, :],
+                                                   cand.shape), cand)
+    return torch.from_numpy(np.ascontiguousarray(exact, np.float32))
+
+
 def _exact_rerank(q, qv, all_d, all_i, z, k: int, metric: str):
     """Exact f32 re-rank of stacked candidates (T, C) for query rows ``q``.
 
     Non-finite ``all_d`` entries mark unfilled / padded candidates and are
     excluded; returned distances are exact for the returned indices, ties
     to the earlier candidate column (as ``lax.top_k``)."""
-    cand = z[all_i.long()]                              # (T, C, D)
-    if metric == "euclidean":
-        diff = q[:, None, :] - cand
-        exact = torch.sqrt(torch.clamp_min(dot_last(diff, diff), 0.0))
-    else:
-        exact = 1.0 - dot_last(q[:, None, :].expand_as(cand), cand)
+    exact = _exact_distances(q, all_i, z, metric)
     exact = torch.where(torch.isfinite(all_d), exact, float("inf"))
     vals, sel = torch.sort(exact, dim=1, stable=True)
     best_d = torch.where(qv[:, None], vals[:, :k], float("inf"))

@@ -35,9 +35,13 @@ CAND_LANES = 128
 # per step, bounding its memory at large N
 _REF_BLOCK_ELEMS = 1 << 26
 
+# widest feature dimension the kernels take (their shared memory per block)
+MAX_KERNEL_DIM = 128
+
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "knn_select_launch": ([_VP, _VP] + [_CI] * 8 + [_VP, _VP, _VP], _CI),
+    "knn_select_launch": ([_VP, _VP] + [_CI] * 9 + [_VP] * 6, _CI),
+    "knn_select_work_floats": ([_CI] * 3, _CI),
     "knn_select_error_string": ([_CI], ctypes.c_char_p),
 }
 
@@ -135,19 +139,36 @@ def fused_select(zq: torch.Tensor, z: torch.Tensor, n_valid: int, *,
                                       bins=bins, k_sel=k_sel, packed=packed)
     if zq.device.type != "cuda":
         raise ValueError(f"fused_select: unsupported device {zq.device}")
+    if zq.shape[1] > MAX_KERNEL_DIM:
+        raise ValueError(f"fused_select on the GPU takes D <= "
+                         f"{MAX_KERNEL_DIM} features, got {zq.shape[1]}")
+    if z.shape[0] // bins > 0xFFFF:
+        raise ValueError(f"fused_select on the GPU takes at most 65,535 "
+                         f"blocks of bins={bins} rows, got "
+                         f"{z.shape[0] // bins}")
     lib = _library()
     qa, xa = _augment(zq, z, metric)
     qp, np_ = qa.shape[0], xa.shape[0]
-    out_d = torch.empty((qp, k_sel), dtype=torch.float32, device=zq.device)
-    out_i = torch.empty((qp, k_sel), dtype=torch.int32, device=zq.device)
+    dev = zq.device
+    out_d = torch.empty((qp, k_sel), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qp, k_sel), dtype=torch.int32, device=dev)
     if qp == 0:
         return out_d, out_i
-    with torch.cuda.device(zq.device):
-        stream = torch.cuda.current_stream(zq.device).cuda_stream
+    # the kernels' scratch: split operands and candidate lists (work), the
+    # first walk's per (query row, slot) values, then the entries of rows
+    # that settle in full (acc, and acc_i for their row ids unpacked)
+    work = torch.empty(lib.knn_select_work_floats(qp, np_, zq.shape[1]),
+                       dtype=torch.float32, device=dev)
+    acc = torch.empty((qp, 2 * bins), dtype=torch.int32, device=dev)
+    acc_i = (acc if packed else
+             torch.empty((qp, 2 * bins), dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.knn_select_launch(
-            qa.data_ptr(), xa.data_ptr(), qp, np_, qa.shape[1], int(n_valid),
-            bins, k_sel, int(packed), blk_bits, out_d.data_ptr(),
-            out_i.data_ptr(), stream)
+            qa.data_ptr(), xa.data_ptr(), qp, np_, qa.shape[1], zq.shape[1],
+            int(n_valid), bins, k_sel, int(packed), blk_bits,
+            work.data_ptr(), acc.data_ptr(), acc_i.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"knn_select kernel launch failed: "
