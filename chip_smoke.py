@@ -28,11 +28,17 @@ Phases, each printed as it ends:
      and medoid-like draws of the same latents) and at a ragged 1,037 x 5
      against 130: at most 1e-4 of the rows may differ, only at near-ties
      (exact distances within 1e-5 relative), and distances within 1e-5
-     relative. Yardstick: ``(|c|^2 - 2 z c^T).min(1)``;
+     relative. Yardstick: ``(|c|^2 - 2 z c^T).min(1)``. At 160,000 rows
+     also one call's device time by kernel (``torch.profiler``: the prep
+     launch and the main kernel) and the wrapper's host time per call;
    - K4 at the gather-min tool's shapes (196,608 x K rows, 2^20 indices,
-     K in 256, 512, 1024): bitwise equal. Yardstick: ``d[idx].amin(0)``.
-     Its bound counts each distinct gathered row once (a repeat does not
-     change a min), and its time leaves out the wrapper's index check;
+     K in 256, 512, 1024) and at 4,096 indices into 196,608 x 1024
+     (sparse), where it must take the scan route, and at 16 indices, where
+     it must take the gather route: bitwise equal, with one call's device
+     time by kernel. Yardstick:
+     ``d[idx].amin(0)``. Its bound counts each distinct gathered row once
+     (a repeat does not change a min), and its time leaves out the
+     wrapper's index check;
 4. the codebook stage through its entry point ``build_codebook_main`` on
    the card at the full width of ``configs/fashionmnist/spatial/geodesic``
    (VAE 16 / 64-128-256 / 256-128-64, batch norm, 28 px; k=20 union
@@ -64,7 +70,7 @@ Phases, each printed as it ends:
    same artifacts (codes identical except at near-ties, PSNRs within
    1e-3 dB);
 8. the gather-min tool through its entry point at its default shapes, its
-   K4 launches counted;
+   K4 launches counted per width and per route (the scan route must run);
 9. one JSON line of per-kernel numbers, then the device line.
 """
 from __future__ import annotations
@@ -96,6 +102,8 @@ K3_ROWS = 160_000    # 10,000 val images x 16 cells (codebook health)
 K3_CODES = 512
 K4_N = 196_608       # the gather-min tool's defaults
 K4_ROWS = 1 << 20
+K4_SPARSE_ROWS = 4096  # R << N: few present rows
+K4_FEW_ROWS = 16       # a handful: one block of the gather route
 K4_WIDTHS = (256, 512, 1024)
 PRESET = "configs/fashionmnist/spatial/geodesic"
 PIPELINE_EPOCHS = 2
@@ -140,6 +148,24 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_times(fn, calls: int = 1):
+    """[(kernel name, device ms per call)] of ``calls`` calls of ``fn``
+    (``torch.profiler``), largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(
+        ((ev.key.replace("void ", "").replace("(anonymous namespace)::",
+                                              "").split("(")[0],
+          ev.device_time_total / 1e3 / calls)
+         for ev in prof.key_averages() if ev.device_time_total > 0),
+        key=lambda kv: -kv[1])
 
 
 def phase_device():
@@ -247,17 +273,7 @@ def check_kernel(name, zd, n_valid, bins, packed, exact_i, exact_d):
         extra = (f"; {Q_ROWS_MAIN} query rows {main_ms:.4f} ms; "
                  f"{L2_ROWS}-row database {l2_ms:.4f} ms")
         # where one call's device time goes, by kernel
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            kernel()
-            torch.cuda.synchronize()
-        parts = sorted(
-            ((ev.key.replace("void ", "").replace("(anonymous namespace)::",
-                                                  "").split("(")[0],
-              ev.device_time_total / 1e3)
-             for ev in prof.key_averages() if ev.device_time_total > 0),
-            key=lambda kv: -kv[1])
+        parts = kernel_times(kernel)
         log(f"{name} device time by kernel: " + "; ".join(
             f"{key[:48]} {t:.3f} ms" for key, t in parts[:7]))
 
@@ -460,8 +476,10 @@ def near_tie_rows(z, cb, idx, ref_idx, rel: float = 1e-5) -> int:
     return int(differ.numel())
 
 
-def check_assign(name, z, cb, reps: int):
-    """K3 against its plain version; times and bound at this shape."""
+def check_assign(name, z, cb, reps: int, split: bool = False):
+    """K3 against its plain version; times and bound at this shape, and
+    with ``split`` one call's device time by kernel and the wrapper's host
+    time per call."""
     import torch
 
     from vqvae_tpu_torch.ops.assign import (nearest_codes,
@@ -481,6 +499,19 @@ def check_assign(name, z, cb, reps: int):
     if max_rel > 1e-5:
         fail(f"{name}: distances differ by {max_rel:.3e} relative")
     ms = cuda_ms(lambda: nearest_codes(z, cb), reps)
+    device_ms = host_ms = None
+    if split:
+        parts = kernel_times(lambda: nearest_codes(z, cb), 10)
+        device_ms = sum(t for _, t in parts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # enqueue only: the card runs behind
+        for _ in range(reps):
+            nearest_codes(z, cb)
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        log(f"{name}: device time per call {device_ms:.4f} ms by kernel: "
+            + "; ".join(f"{key[:40]} {t:.4f} ms" for key, t in parts)
+            + f"; wrapper host time per call {host_ms:.4f} ms")
     plain_ms = cuda_ms(lambda: nearest_codes_reference(z, cb), 2)
     cb_sq = (cb * cb).sum(1)
     library_ms = cuda_ms(lambda: (cb_sq - 2.0 * (z @ cb.T)).min(1), reps)
@@ -496,11 +527,14 @@ def check_assign(name, z, cb, reps: int):
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "device_ms": device_ms,
+            "host_ms": host_ms}
 
 
-def check_gather_min(k: int, gen):
-    """K4 against its plain version at the tool's shapes; times, bound."""
+def check_gather_min(k: int, gen, rows: int = K4_ROWS, route=None):
+    """K4 against its plain version on ``rows`` random indices into
+    196,608 x ``k``; times, bound; fails unless it took ``route`` (when
+    given)."""
     import torch
 
     from vqvae_tpu_torch.ops.gather_min import (gather_min,
@@ -508,35 +542,45 @@ def check_gather_min(k: int, gen):
                                                 launch_gather_min)
 
     d = torch.rand((K4_N, k), generator=gen, device="cuda")
-    idx = torch.randint(0, K4_N, (K4_ROWS,), generator=gen, device="cuda",
+    idx = torch.randint(0, K4_N, (rows,), generator=gen, device="cuda",
                         dtype=torch.int32)
+    before = dict(gather_min.route_launches)
     out = gather_min(d, idx)
     ref = gather_min_reference(d, idx)
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
-        fail(f"K4 K={k}: kernel differs from the plain version by "
+        fail(f"K4 K={k} R={rows}: kernel differs from the plain version by "
              f"{float((out - ref).abs().max())}")
+    took = [r for r, c in gather_min.route_launches.items()
+            if c > before[r]]
+    if route is not None and took != [route]:
+        fail(f"K4 K={k} R={rows}: took the {took} route, expected {route}")
     # the inputs are checked: time the launches without the index check
     ms = cuda_ms(lambda: launch_gather_min(d, idx), 10)
+    parts = kernel_times(lambda: launch_gather_min(d, idx), 10)
+    device_ms = sum(t for _, t in parts)
     plain_ms = cuda_ms(lambda: gather_min_reference(d, idx), 2)
-    rows = idx.long()
-    library_ms = cuda_ms(lambda: d[rows].amin(dim=0, keepdim=True), 3)
+    long_idx = idx.long()
+    library_ms = cuda_ms(lambda: d[long_idx].amin(dim=0, keepdim=True), 3)
     # a repeated row does not change a min: the function needs each
     # distinct row of this run's idx once, idx in and one row out, and
     # one f32 compare per value of those rows
     distinct = int(torch.unique(idx).numel())
-    bytes_ms = 4.0 * (distinct * k + K4_ROWS + k) / PEAK_BYTES * 1e3
+    bytes_ms = 4.0 * (distinct * k + rows + k) / PEAK_BYTES * 1e3
     ops_ms = float(distinct) * k / PEAK_F32 * 1e3
-    log(f"K4 gather-min K={k}: bitwise equal; kernel {ms:.4f} ms "
-        f"({K4_ROWS * k * 4 / ms / 1e6:.1f} GB/s gathered, "
+    log(f"K4 gather-min K={k} R={rows} ({took[0]} route): bitwise equal; "
+        f"kernel {ms:.4f} ms ({rows * k * 4 / ms / 1e6:.1f} GB/s gathered, "
         f"{distinct * k * 4 / ms / 1e6:.1f} GB/s of the {distinct} distinct "
         f"rows), plain {plain_ms:.4f} ms, d[idx].amin {library_ms:.4f} ms, "
         f"bound {max(bytes_ms, ops_ms):.4f} ms "
-        f"({'bytes' if bytes_ms > ops_ms else 'operations'})")
+        f"({'bytes' if bytes_ms > ops_ms else 'operations'}); device time "
+        f"per call {device_ms:.4f} ms by kernel: "
+        + "; ".join(f"{key[:32]} {t:.4f} ms" for key, t in parts))
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "k4_route": took[0],
+            "device_ms": device_ms}
 
 
 def phase_kernels_assign_gather():
@@ -547,7 +591,7 @@ def phase_kernels_assign_gather():
     zd = torch.from_numpy(z[:K3_ROWS]).cuda()
     cb = torch.from_numpy(z[K3_ROWS:]).cuda()  # medoid-like: other rows
     out = {"K3": check_assign("K3 assign (160000 x 16, 512 codes)", zd, cb,
-                              20)}
+                              20, split=True)}
     rng = np.random.default_rng(1)
     zr = torch.from_numpy(rng.normal(size=(1037, 5)).astype(np.float32))
     cbr = torch.from_numpy(rng.normal(size=(130, 5)).astype(np.float32))
@@ -555,8 +599,10 @@ def phase_kernels_assign_gather():
                  cbr.cuda(), 20)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for k in K4_WIDTHS:
-        out[f"K4@{k}"] = check_gather_min(k, gen)
-    out["K4"] = out[f"K4@{K4_WIDTHS[-1]}"]
+        out[f"K4@{k}"] = check_gather_min(k, gen, route="scan")
+        torch.cuda.empty_cache()
+    check_gather_min(K4_WIDTHS[-1], gen, rows=K4_SPARSE_ROWS, route="scan")
+    check_gather_min(K4_WIDTHS[-1], gen, rows=K4_FEW_ROWS, route="gather")
     torch.cuda.empty_cache()
     return out
 
@@ -585,6 +631,7 @@ def zero_launches():
 
     for fn in (fused_select, nearest_codes, gather_min):
         fn.launches = 0
+    gather_min.route_launches = dict.fromkeys(gather_min.route_launches, 0)
 
 
 def read_launches():
@@ -842,17 +889,22 @@ def phase_train_step_reference(seed: int = 42):
 
 def phase_gather_min_tool():
     """The gather-min tool's entry point at its default shapes."""
+    from vqvae_tpu_torch.ops.gather_min import gather_min
     from vqvae_tpu_torch.tools import bench_gather_min
 
     zero_launches()
     t0 = time.perf_counter()
-    bench_gather_min.main(["--device", "cuda"])
+    res = bench_gather_min.main(["--device", "cuda"])
     launches = read_launches()["K4"]
+    routes = dict(gather_min.route_launches)
     if launches <= 0:
         fail("the gather-min tool launched no K4 kernel")
+    if routes["scan"] <= 0:
+        fail(f"the gather-min tool never took K4's scan route: {routes}")
     log(f"gather-min tool: {time.perf_counter() - t0:.3f}s, K4 launches "
-        f"{launches}")
-    return launches
+        f"{launches} (by route {routes}; by width "
+        f"{ {k: r['launches'] for k, r in res.items()} })")
+    return {k: r["launches"] for k, r in res.items()}
 
 
 def main() -> None:
@@ -894,7 +946,8 @@ def main() -> None:
         shutil.rmtree(work, ignore_errors=True)
 
     launches = {"K1": k1_launches, "K2": k2_launches,
-                "K3": pipe["launches"]["K3"], "K4": k4_launches}
+                "K3": pipe["launches"]["K3"],
+                **{f"K4@{w}": k4_launches[w] for w in K4_WIDTHS}}
     entries = []
     for kid, name, source, replaces in (
             ("K1", "knn_select packed", "knn_select.cu",
@@ -903,17 +956,19 @@ def main() -> None:
              "vqvae_tpu/ops/pallas_knn.py:58"),
             ("K3", "nearest-code assign", "assign.cu",
              "vqvae_tpu/ops/pallas_assign.py:33"),
-            ("K4", "gather-min", "gather_min.cu",
-             "tools/bench_pallas_gather.py:39")):
+            *((f"K4@{w}", f"gather-min K={w}", "gather_min.cu",
+               "tools/bench_pallas_gather.py:39") for w in K4_WIDTHS)):
         k = kernels[kid]
         entries.append({
-            "name": f"{kid} {name}", "route": "cuda",
+            "name": f"{kid.split('@')[0]} {name}", "route": "cuda",
             "source": f"vqvae_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": launches[kid], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"]})
+            "library_ms": k["library_ms"],
+            **{key: k[key] for key in ("device_ms", "host_ms", "k4_route")
+               if key in k}})
     log(f"card {card}; total {time.perf_counter() - t_start:.3f}s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

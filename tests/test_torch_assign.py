@@ -70,3 +70,32 @@ def test_ties_go_to_the_lowest_code():
     np.testing.assert_array_equal(idx.numpy(), [0, 0])
     ref_idx, _ = jax_nearest_codes(z, cb, interpret=True)
     np.testing.assert_array_equal(idx.numpy(), ref_idx)
+
+
+@pytest.mark.parametrize("d,k,lo,hi", [(16, 512, 127, 128),
+                                      (128, 200, 20, 70)])
+def test_duplicate_codes_far_apart_take_the_lower_index(d, k, lo, hi):
+    # the card kernel splits codes over warps and chunks (csrc/assign.cu):
+    # these pairs straddle a warp split and a chunk boundary there
+    rng = np.random.default_rng(d + k)
+    cb = rng.normal(size=(k, d)).astype(np.float32)
+    cb[hi] = cb[lo]
+    z = (cb[lo] + 1e-3 * rng.normal(size=(33, d))).astype(np.float32)
+    idx, dist = nearest_codes(z, cb, device="cpu")
+    ref_idx, ref_dist = jax_nearest_codes(z, cb, interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), ref_idx)
+    assert (idx.numpy() == lo).all()
+    # |c|^2 - 2 z.c + |z|^2 cancels at z ~ c: only the indices compare
+    assert (dist.numpy() >= 0).all() and np.isfinite(dist.numpy()).all()
+
+
+def test_tuning_variants_apply_to_the_shipped_source():
+    # tools/tune_assign.py rewrites constants of csrc/assign.cu: each
+    # variant must find its anchors, and "shipped" must be the source
+    from vqvae_tpu_torch._build import CSRC_DIR
+    from vqvae_tpu_torch.tools import tune_assign
+
+    src = (CSRC_DIR / "assign.cu").read_text()
+    for name, params in tune_assign.VARIANTS.items():
+        assert (tune_assign.variant_source(src, *params) == src) == (
+            name == "shipped"), name

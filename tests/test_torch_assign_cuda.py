@@ -37,9 +37,15 @@ def _check_near_ties(z, cb, idx, ref_idx):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,k", [(160_000, 16, 512), (1037, 5, 130),
-                                   (300, 16, 37), (20, 4, 1),
-                                   (4099, 33, 700), (64, 128, 9000)])
+@pytest.mark.parametrize("n,d,k", [
+    (160_000, 16, 512), (1037, 5, 130), (300, 16, 37), (20, 4, 1),
+    (4099, 33, 700), (64, 128, 9000),
+    (5000, 16, 1),                  # one code: seven warps without codes
+    (3000, 16, 517), (700, 8, 13),  # K not a multiple of the warps' share
+    (50, 16, 512),                  # fewer rows than one tile
+    (12_800, 16, 512),              # 100 tiles: a grid under the 132 SMs
+    (2000, 100, 300),               # padded width 128: chunks of 64 codes
+])
 def test_kernel_matches_plain_version_on_card(cuda_device, n, d, k):
     rng = np.random.default_rng(n + d + k)
     z = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(
@@ -71,3 +77,30 @@ def test_wrapper_raises_on_card_instead_of_falling_back(cuda_device):
     z = torch.zeros((8, 129), device=cuda_device)
     with pytest.raises(ValueError):
         nearest_codes(z, z)  # wider than the kernel holds in registers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,lo,hi", [
+    (16, 512, 127, 128),  # last code of warp 0, first of warp 1
+    (16, 512, 5, 500),    # warps 0 and 3
+    (128, 200, 20, 70),   # warp 1 of chunk 0 and warp 0 of chunk 1
+    (4, 3000, 1023, 2900),  # chunks 0 and 2
+])
+def test_duplicate_codes_across_a_split_take_the_lower_index_on_card(
+        cuda_device, d, k, lo, hi):
+    rng = np.random.default_rng(d + k)
+    cb = rng.normal(size=(k, d)).astype(np.float32)
+    cb[hi] = cb[lo]
+    z = (cb[lo] + 1e-3 * rng.normal(size=(257, d))).astype(np.float32)
+    z[0] = cb[lo]
+    z = torch.from_numpy(z).to(cuda_device)
+    cbt = torch.from_numpy(cb).to(cuda_device)
+    idx, dist = nearest_codes(z, cbt)
+    ref_idx, ref_dist = nearest_codes_reference(z, cbt)
+    torch.cuda.synchronize()
+    assert idx[0] == lo and ref_idx[0] == lo
+    assert not (idx == hi).any()
+    assert _check_near_ties(z, cbt, idx, ref_idx) <= 1e-2
+    same = idx == ref_idx
+    torch.testing.assert_close(dist[same], ref_dist[same], rtol=1e-5,
+                               atol=1e-5)

@@ -17,6 +17,7 @@ jitted reductions compute them.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -34,7 +35,9 @@ _REF_BLOCK_ELEMS = 1 << 24
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "assign_launch": ([_VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP], _CI),
+    "assign_launch": ([_VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP, _VP],
+                      _CI),
+    "assign_padded_dim": ([_CI], _CI),
     "assign_error_string": ([_CI], ctypes.c_char_p),
 }
 
@@ -46,6 +49,12 @@ def build() -> str:
 
 def _library() -> ctypes.CDLL:
     return load_cuda_library("assign.cu", _SIGNATURES)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _padded_dim(d: int) -> int:
+    """Width the kernel pads each code to (``assign_padded_dim``)."""
+    return _library().assign_padded_dim(d)
 
 
 def _check(z: torch.Tensor, codebook: torch.Tensor) -> None:
@@ -85,20 +94,25 @@ def nearest_codes(z, codebook, device=None
     lib = _library()
     z = z.contiguous()
     codebook = codebook.contiguous()
+    k = codebook.shape[0]
     idx = torch.empty(n, dtype=torch.int64, device=z.device)
-    dist = torch.empty(n, dtype=torch.float32, device=z.device)
     if n == 0:
-        return idx, dist
+        return idx, torch.empty(0, dtype=torch.float32, device=z.device)
+    # one f32 buffer: the codebook zero-padded to the kernel's width, |c|^2
+    # (scratch), then the distances
+    padded = k * _padded_dim(d)
+    buf = torch.empty(padded + k + n, dtype=torch.float32, device=z.device)
+    dist = buf[padded + k:]
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        rc = lib.assign_launch(z.data_ptr(), codebook.data_ptr(), n, d,
-                               codebook.shape[0], idx.data_ptr(),
-                               dist.data_ptr(), stream)
+        rc = lib.assign_launch(z.data_ptr(), codebook.data_ptr(), n, d, k,
+                               buf.data_ptr(), buf[padded:].data_ptr(),
+                               idx.data_ptr(), dist.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"assign kernel launch failed: "
             f"{lib.assign_error_string(rc).decode()} (code {rc}; n={n} d={d} "
-            f"k={codebook.shape[0]})")
+            f"k={k})")
     nearest_codes.launches += 1
     return idx, dist
 

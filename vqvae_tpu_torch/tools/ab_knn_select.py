@@ -63,23 +63,30 @@ print("AB " + json.dumps(res), flush=True)
 """
 
 
-def main(argv: Optional[List[str]] = None) -> None:
-    trees = list(sys.argv[1:] if argv is None else argv)
-    if not trees:
-        raise SystemExit("usage: ab_knn_select TREE [TREE ...]")
+def run_trees(child: str, trees: List[str]) -> None:
+    """Print the card's name and power limit, then run ``child`` (Python
+    source; argv[1] is the tree) once per tree, in the order given, each
+    in its own process, and print the JSON of its last ``AB `` line."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     for tree in trees:
-        proc = subprocess.run([sys.executable, "-c", _CHILD, tree],
+        proc = subprocess.run([sys.executable, "-c", child, tree],
                               capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         if proc.returncode != 0 or not lines:
             raise SystemExit(f"run on {tree} failed:\n{proc.stdout[-4000:]}"
                              f"\n{proc.stderr[-4000:]}")
         print(lines[-1][3:], flush=True)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    trees = list(sys.argv[1:] if argv is None else argv)
+    if not trees:
+        raise SystemExit("usage: ab_knn_select TREE [TREE ...]")
+    run_trees(_CHILD, trees)
 
 
 if __name__ == "__main__":

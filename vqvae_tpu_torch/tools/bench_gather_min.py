@@ -13,8 +13,13 @@ plain version runs and times are host-clock times of the CPU.
 The JAX tool's ``--slots`` (the depth of its TPU DMA ring) has no
 counterpart: the kernel keeps several rows in flight per thread instead.
 
+``--crossover R1,R2,...`` (card only) times instead both of K4's routes,
+forced, for each of those index counts and each width at ``--n`` rows, and
+prints the route ``gather_min_route`` picks beside the faster one: the
+measurement behind the route rule.
+
 Run: ``python -m vqvae_tpu_torch.tools.bench_gather_min [--rows 1048576]
-[--n 196608] [--widths 256,512,1024] [--device cpu]``.
+[--n 196608] [--widths 256,512,1024] [--device cpu] [--crossover ...]``.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import gather_min as gather_min_ops
 from ..ops.gather_min import gather_min, launch_gather_min
 
 
@@ -63,6 +69,7 @@ def bench_width(n: int, k: int, rows: int, device: torch.device,
     def library():
         return d[rows_long].amin(dim=0, keepdim=True)
 
+    launches = gather_min.launches
     ours, ref = gather_min(d, idx), library()
     if not torch.equal(ours, ref):
         raise AssertionError(
@@ -74,6 +81,45 @@ def bench_width(n: int, k: int, rows: int, device: torch.device,
         out[name] = {"seconds": best,
                      "gbps": rows * k * 4 / best / 1e9,
                      "mrows_s": rows / best / 1e6}
+    out["launches"] = gather_min.launches - launches
+    return out
+
+
+def route_crossover(n: int, k: int, rows: int, device: torch.device,
+                    reps: int = 20) -> Dict[str, Dict[str, float]]:
+    """Per route of K4, forced, on ``rows`` random indices into ``n`` x
+    ``k``: the device time of one call summed over its kernels and memsets
+    (``torch.profiler``, ``reps`` calls) and the event loop's ms per call
+    (CUDA events, ``reps`` calls after a warm-up; it includes the host's
+    launch work where that is longer); raises unless both routes equal the
+    plain version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(0)
+    d = torch.from_numpy(rng.random((n, k), dtype=np.float32)).to(device)
+    idx = torch.from_numpy(rng.integers(0, n, rows).astype(np.int32)).to(
+        device)
+    ref = gather_min_ops.gather_min_reference(d, idx)
+    out = {}
+    for route in gather_min_ops.ROUTES:
+        if not torch.equal(gather_min_ops._launch(d, idx, route), ref):
+            raise AssertionError(f"{route} route differs at n={n} k={k} "
+                                 f"rows={rows}")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            gather_min_ops._launch(d, idx, route)
+        end.record()
+        end.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                gather_min_ops._launch(d, idx, route)
+            torch.cuda.synchronize()
+        device_ms = sum(ev.device_time_total for ev in prof.key_averages()
+                        if ev.device_time_total > 0) / 1e3 / reps
+        out[route] = {"device_ms": device_ms,
+                      "event_ms": start.elapsed_time(end) / reps}
     return out
 
 
@@ -85,8 +131,29 @@ def main(argv: Optional[List[str]] = None) -> Dict[int, dict]:
     ap.add_argument("--widths", default="256,512,1024")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--crossover", default=None,
+                    help="comma-separated index counts: time both routes")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.crossover:
+        if dev.type != "cuda":
+            raise SystemExit("--crossover times the kernel's routes on the "
+                             "card")
+        results = {}
+        for k in (int(w) for w in args.widths.split(",")):
+            for r in (int(x) for x in args.crossover.split(",")):
+                res = route_crossover(args.n, k, r, dev)
+                results[(k, r)] = res
+                faster = min(res, key=lambda rt: res[rt]["device_ms"])
+                print(f"crossover n={args.n} K={k} R={r}: device ms gather "
+                      f"{res['gather']['device_ms']:.4f}, scan "
+                      f"{res['scan']['device_ms']:.4f} (event loop "
+                      f"{res['gather']['event_ms']:.4f}, "
+                      f"{res['scan']['event_ms']:.4f}); faster {faster}, "
+                      f"rule picks "
+                      f"{gather_min_ops.gather_min_route(r, args.n, k)}",
+                      flush=True)
+        return results
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu (the plain version; host-clock times)")
     print(f"device={name} rows={args.rows} n={args.n}")
