@@ -52,26 +52,45 @@ Phases, each printed as it ends:
    within rtol 1e-4 on all but 1e-3 of the edges (ReLU gates at rounding
    distance from their kink may flip between devices), QE within rtol
    1e-3;
-6. the pipeline vae -> codebook -> quality through its entry points:
-   ``train_vae_main`` on the preset ``vae.yaml`` at full width (batch 256,
-   the synthetic 60,000 / 10,000 split) for 2 epochs, ``build_codebook_main``
-   on the first 4,096 images of its ``latents_train`` (65,536 nodes) reading
-   the VAE through the preset's ``.../checkpoints/best`` path, and the three
-   quality evaluators on the full val split, with every launch count
-   zeroed before and read after. Every artifact must exist, the val loss
-   be finite and K3 have launched;
-7. the new path on the card against the CPU: one train step on the same
-   batch and noise (loss within rtol 1e-5; each gradient tensor within
-   2e-3 of its norm; at least 99 % of the parameters within rtol 1e-4 and
-   all within one Adam step, 2 lr, of the CPU's: where a gradient sits at
+6. the whole pipeline through the port's orchestrator ``run_pipeline`` on
+   the preset, rooted in a scratch directory: a first call runs ``vae`` at
+   full width (batch 256, the synthetic 60,000 / 10,000 split) for 2
+   epochs; the first 4,096 images of its ``latents_train`` are cut out;
+   a second call runs codebook (65,536 nodes, the VAE read through the
+   preset's ``.../checkpoints/best`` path) -> quality (the full val split)
+   -> transformer (the preset's full width: 512 tokens, embed 256, 4
+   layers, 4 heads, batch 256, dropout 0.1, label smoothing 0.1, lr 3e-4,
+   on the cut's codes and labels, 5 epochs of about 16 steps) -> generate
+   (the preset's 100 samples, 10 classes, top_k 50) -> evaluate. Every
+   launch count is zeroed before the first call and read after the
+   second. The quality and evaluate stages swallow their exceptions by
+   design, so every stage's artifacts are checked here: the VAE's, the
+   codebook's, the quality JSONs, the transformer's checkpoints and
+   finite, falling losses, a 302 x 302 ``generated_samples.png`` read back
+   by the port's PNG reader, ``metrics.yaml`` with finite PSNR and SSIM and
+   null LPIPS, ``comparison_grid.png``; K1 and K3 must have launched.
+   Logged: seconds per stage, steps/s per epoch of both trainings, and
+   the generate stage's ms per sampled token step;
+7. the VAE on the card against the CPU: one train step on the same batch
+   and noise (loss within rtol 1e-5; each gradient tensor within 2e-3 of
+   its norm; at least 99 % of the parameters within rtol 1e-4 and all
+   within one Adam step, 2 lr, of the CPU's: where a gradient sits at
    rounding distance from 0, Adam's first step may take either sign). A
    control runs the card's step again with TF32 matmuls and convolutions
-   and must fail the gradient limit. Then the quality evaluators on the
-   same artifacts (codes identical except at near-ties, PSNRs within
-   1e-3 dB);
-8. the gather-min tool through its entry point at its default shapes, its
+   and must fail the gradient limit;
+8. the transformer at the preset's width on the card against the CPU,
+   same weights, dropout 0: one train step on the same batch (loss within
+   rtol 1e-5, each gradient tensor within ``TF_GRAD_LIMIT`` of its norm,
+   and a TF32 control that must fail that limit), the card's KV-cache
+   logits against its own full-prefix forward (1e-5 relative), greedy
+   sampling of 100 sequences equal to the CPU's except at near-ties (top
+   two logits within 1e-5 relative; their count is printed); then the
+   card's train step time, device time and the model's FLOPs at the f32
+   peak. Then the quality evaluators on phase 6's artifacts, card against
+   CPU (codes identical except at near-ties, PSNRs within 1e-3 dB);
+9. the gather-min tool through its entry point at its default shapes, its
    K4 launches counted per width and per route (the scan route must run);
-9. one JSON line of per-kernel numbers, then the device line.
+10. one JSON line of per-kernel numbers, then the device line.
 """
 from __future__ import annotations
 
@@ -108,10 +127,14 @@ K4_WIDTHS = (256, 512, 1024)
 PRESET = "configs/fashionmnist/spatial/geodesic"
 PIPELINE_EPOCHS = 2
 CODEBOOK_IMAGES = 4096  # 65,536 nodes: the codebook path at a cut depth
+TRANSFORMER_EPOCHS = 5  # of the preset's 200: about 16 steps each
 # card vs CPU train step: largest gradient difference, as a share of its
 # tensor's norm. On an H100, full f32 reads 4.65e-4 and the same step with
 # TF32 convolutions 1.14e-2; the limit sits between them.
 GRAD_LIMIT = 2e-3
+# the same for one transformer step at the preset's width (full f32 on the
+# card against the CPU, and the TF32 control); see PERF.md
+TF_GRAD_LIMIT = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -607,22 +630,20 @@ def phase_kernels_assign_gather():
     return out
 
 
-def pipeline_configs(work: Path):
-    """The preset's vae and codebook configs pointing under ``work`` (the
-    experiment layout the preset uses); no dataset files, so the VAE
-    trains on the synthetic 60,000 / 10,000 split."""
-    from vqvae_tpu_torch.config import load_config
-
-    exp = work / "experiments" / "fashionmnist" / "spatial" / "geodesic"
-    vae = load_config(ROOT / PRESET / "vae.yaml", {
-        "max_epochs": PIPELINE_EPOCHS, "out_dir": str(exp / "vae"),
-        "data": {"root": str(work / "no-data")}})
-    run = exp / "vae" / "spatial_vae_fashionmnist"
-    codebook = load_config(ROOT / PRESET / "codebook.yaml", {
-        "latents_path": str(work / f"latents_train_{CODEBOOK_IMAGES}"),
-        "vae_ckpt_path": str(run / "checkpoints" / "best"),
-        "out_dir": str(exp / "codebook")})
-    return exp, run, vae, codebook
+def pipeline_overrides(work: Path):
+    """Overrides of the preset for the two orchestrated runs, rooted at
+    ``work`` (the preset's relative ``experiments/...`` paths land under
+    it). No dataset files, so the VAE trains on the synthetic 60,000 /
+    10,000 split; the codebook and the transformer read the first
+    ``CODEBOOK_IMAGES`` training latents (and their labels)."""
+    cut = str(work / f"latents_train_{CODEBOOK_IMAGES}")
+    return {
+        "vae": {"max_epochs": PIPELINE_EPOCHS,
+                "data": {"root": str(work / "no-data")}},
+        "codebook": {"latents_path": cut},
+        "transformer": {"data": {"labels_path": cut},
+                        "training": {"epochs": TRANSFORMER_EPOCHS}},
+    }
 
 
 def zero_launches():
@@ -654,37 +675,68 @@ def quality_outputs(exp: Path) -> dict:
     return {f.name: _json.loads(f.read_text()) for f in files}
 
 
+def timed_sampler():
+    """Wrap the generate stage's sampler so one call's seconds (to a
+    device sync), token steps and batch are recorded; returns the record
+    and a function that restores the sampler."""
+    import torch
+
+    from vqvae_tpu_torch.cli import generate_samples as gen_mod
+
+    orig, rec = gen_mod.sample_autoregressive, {}
+
+    def timed(model, first, steps, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(model, first, steps, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec.update(seconds=time.perf_counter() - t0, steps=steps,
+                   batch=first.shape[0])
+        return out
+
+    gen_mod.sample_autoregressive = timed
+    return rec, lambda: setattr(gen_mod, "sample_autoregressive", orig)
+
+
 def phase_pipeline(work: Path):
-    """vae -> codebook -> quality through the entry points; returns the
-    experiment dir, the launches, seconds per stage and the training
-    rate."""
+    """vae, then codebook -> quality -> transformer -> generate ->
+    evaluate, through the port's orchestrator; returns the experiment
+    dir, the launches, seconds per stage and the training rates."""
     import json as _json
 
     import numpy as np
+    import yaml
 
-    from vqvae_tpu_torch.cli import (build_codebook_main, run_quality_stage,
-                                     train_vae_main)
+    from vqvae_tpu_torch.cli import run_pipeline
+    from vqvae_tpu_torch.cli.pipeline import STAGES
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.utils.images import load_image
     from vqvae_tpu_torch.utils.latents import load_latents, save_latents
 
-    exp, run, vae_cfg, cb_cfg = pipeline_configs(work)
+    preset = ROOT / PRESET
+    exp = work / load_config(preset / "quality.yaml")["experiment"]
+    run = exp / "vae" / "spatial_vae_fashionmnist"
+    overrides = pipeline_overrides(work)
+    work.mkdir(parents=True, exist_ok=True)
     zero_launches()
-    t0 = time.perf_counter()
-    out = train_vae_main(vae_cfg, device="cuda")
-    t_vae = time.perf_counter() - t0
-    if out != run:
-        fail(f"VAE run landed in {out}, expected {run}")
+    first = run_pipeline(preset, skip=STAGES[1:], overrides=overrides,
+                         root_dir=work, device="cuda")
     lat = load_latents(run / "latents_train")
-    save_latents(cb_cfg["latents_path"],
+    save_latents(overrides["codebook"]["latents_path"],
                  *(lat[k][:CODEBOOK_IMAGES]
                    for k in ("z", "mu", "logvar", "y")))
-    t0 = time.perf_counter()
-    build_codebook_main(cb_cfg, device="cuda")
-    t_codebook = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rc = run_quality_stage(exp, dataset="fashionmnist", device="cuda")
-    t_quality = time.perf_counter() - t0
+    sampling, restore = timed_sampler()
+    try:
+        rest = run_pipeline(preset, skip=STAGES[:1], overrides=overrides,
+                            root_dir=work, device="cuda")
+    finally:
+        restore()
     launches = read_launches()
+    seconds = {**{k: v for k, v in first.items() if k != "total"}, **rest}
+    del seconds["total"]
 
+    tf_dir = exp / "transformer"
+    evaluation = exp / "evaluation"
     for path in (run / "checkpoints" / "best.pt",
                  run / "checkpoints" / "latest.pt",
                  run / "latents_train" / "latents.npz",
@@ -693,7 +745,13 @@ def phase_pipeline(work: Path):
                  exp / "codebook" / "codebook.npz",
                  exp / "codebook" / "codebook.pt",
                  exp / "codebook" / "codes.npy",
-                 exp / "codebook" / "knn_graph_geodesic.npz"):
+                 exp / "codebook" / "knn_graph_geodesic.npz",
+                 tf_dir / "checkpoints" / "best.pt",
+                 tf_dir / "checkpoints" / "latest.pt",
+                 tf_dir / "metrics.jsonl",
+                 evaluation / "generated_samples.png",
+                 evaluation / "metrics.yaml",
+                 evaluation / "comparison_grid.png"):
         if not path.exists():
             fail(f"pipeline artifact {path} missing")
     quality = quality_outputs(exp)
@@ -702,26 +760,58 @@ def phase_pipeline(work: Path):
     val_loss = rows[-1]["val_loss"]
     if len(rows) != PIPELINE_EPOCHS or not np.isfinite(val_loss):
         fail(f"VAE training: {len(rows)} epochs, final val loss {val_loss}")
+    tf_rows = [_json.loads(line) for line in
+               (tf_dir / "metrics.jsonl").read_text().splitlines()]
+    tf_losses = [(r["train_loss"], r["val_loss"]) for r in tf_rows]
+    if len(tf_rows) != TRANSFORMER_EPOCHS or not np.all(
+            np.isfinite(tf_losses)):
+        fail(f"transformer training: {len(tf_rows)} epochs, losses "
+             f"{tf_losses}")
+    if not tf_rows[-1]["train_loss"] < tf_rows[0]["train_loss"]:
+        fail(f"transformer training: train loss did not fall: {tf_losses}")
+    grid = load_image(evaluation / "generated_samples.png")
+    if grid.shape[:2] != (302, 302):
+        fail(f"generated_samples.png is {grid.shape}, expected 302 x 302")
+    metrics = yaml.safe_load((evaluation / "metrics.yaml").read_text())
+    if not (np.isfinite(metrics["PSNR_full"])
+            and np.isfinite(metrics["SSIM_full"])
+            and metrics["LPIPS"] is None):
+        fail(f"evaluation metrics {metrics}")
+    if launches["K1/K2"] <= 0:
+        fail("the codebook stage launched no K1 kernel")
     if launches["K3"] <= 0:
         fail("the quality stage launched no K3 kernel")
+    if not sampling:
+        fail("the generate stage did not sample")
     rates = [r["train_steps"] / r["train_seconds"] for r in rows]
+    tf_rates = [r["train_steps"] / r["train_seconds"] for r in tf_rows]
+    token_ms = sampling["seconds"] / sampling["steps"] * 1e3
     codes = np.load(exp / "codebook" / "codes.npy")
     shown = ("psnr", "ssim", "quality", "health", "entropy", "used")
     summary = "; ".join(
         name + ": " + ", ".join(f"{k} {v}" for k, v in q.items()
                                 if k.startswith(shown))
         for name, q in quality.items())
-    rate_text = ", ".join(f"{r:.2f}" for r in rates)
-    log(f"pipeline: vae {t_vae:.3f}s ({PIPELINE_EPOCHS} epochs, "
-        f"{rows[-1]['train_steps']} steps each, steps/s per epoch "
-        f"{rate_text}; final val loss {val_loss}, psnr "
-        f"{rows[-1]['val_psnr']}), codebook {t_codebook:.3f}s ({codes.size} "
-        f"nodes), quality {t_quality:.3f}s (gate rc {rc}; {summary}); "
-        f"launches {launches}")
+    log(f"pipeline seconds by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    log(f"pipeline: vae {PIPELINE_EPOCHS} epochs, {rows[-1]['train_steps']} "
+        f"steps each, steps/s per epoch "
+        f"{', '.join(f'{r:.2f}' for r in rates)}; final val loss {val_loss}, "
+        f"psnr {rows[-1]['val_psnr']}; codebook {codes.size} nodes; quality "
+        f"{summary}")
+    log(f"pipeline: transformer {TRANSFORMER_EPOCHS} epochs of "
+        f"{tf_rows[0]['train_steps']} steps, steps/s per epoch "
+        f"{', '.join(f'{r:.2f}' for r in tf_rates)}; (train, val) loss per "
+        f"epoch {', '.join(f'({a:.4f}, {b:.4f})' for a, b in tf_losses)}")
+    log(f"pipeline: generate sampled {sampling['batch']} sequences, "
+        f"{sampling['steps']} token steps in {sampling['seconds']:.3f}s "
+        f"({token_ms:.3f} ms a step); evaluate PSNR {metrics['PSNR_full']}, "
+        f"SSIM {metrics['SSIM_full']}, LPIPS {metrics['LPIPS']}; launches "
+        f"{launches}")
     return {"exp": exp, "launches": launches, "quality": quality,
-            "seconds": {"vae": t_vae, "codebook": t_codebook,
-                        "quality": t_quality},
-            "steps_per_s": rates, "val_loss": val_loss}
+            "seconds": seconds, "steps_per_s": rates,
+            "transformer_steps_per_s": tf_rates, "token_ms": token_ms,
+            "val_loss": val_loss}
 
 
 def phase_quality_reference(exp: Path, gpu_quality: dict):
@@ -887,6 +977,158 @@ def phase_train_step_reference(seed: int = 42):
         f"biases skipped); BatchNorm statistics within rtol 1e-4")
 
 
+def phase_transformer_reference(seed: int = 42):
+    """The transformer prior at the preset's width on the card against the
+    CPU, from the same weights, dropout 0: one train step, the KV cache
+    against the full-prefix forward, greedy sampling; then the card's
+    train step time beside its FLOPs at the f32 peak."""
+    import copy
+
+    import torch
+
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.device import resolve_device
+    from vqvae_tpu_torch.models.transformer import (Transformer,
+                                                    transformer_init_)
+    from vqvae_tpu_torch.train import TransformerEngine
+    from vqvae_tpu_torch.train.transformer_engine import sample_autoregressive
+    from vqvae_tpu_torch.train.vae_engine import seeded_generator
+
+    cfg = load_config(ROOT / PRESET / "transformer.yaml")
+    arch = {**dict(cfg["model"]), "dropout": 0.0}
+    train = cfg["training"]
+    model = transformer_init_(Transformer(**arch),
+                              seeded_generator("cpu", seed))
+    bs, seq = int(cfg["data"]["batch_size"]), arch["max_seq_len"]
+    vocab, classes = arch["num_tokens"], arch["num_classes"]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, vocab, (bs, seq - 1), generator=g)
+    t = torch.randint(0, vocab, (bs, seq - 1), generator=g)
+    lab = torch.randint(0, classes, (bs,), generator=g)
+    mask = torch.ones(bs)
+    mask[-16:] = 0.0  # a padded tail, as the last batch has
+    x[-16:], t[-16:] = 0, 0
+
+    def engine(dev):
+        return TransformerEngine(
+            copy.deepcopy(model), lr=float(train["lr"]),
+            weight_decay=float(train["weight_decay"]),
+            cosine_t_max=int(train["epochs"]), steps_per_epoch=16,
+            label_smoothing=float(train["label_smoothing"]), seed=seed,
+            device=dev)
+
+    def step(dev, tf32=False):
+        eng = engine(dev)
+        if tf32:  # the control: the engine has set full f32; undo it
+            set_tf32()
+        try:
+            loss = eng.train_step(x.to(dev), t.to(dev), lab.to(dev),
+                                  mask.to(dev), None)
+        finally:
+            resolve_device(dev)  # full f32 again
+        return float(loss), {k: p.grad.detach().cpu()
+                             for k, p in eng.model.named_parameters()}
+
+    loss_g, grad_g = step("cuda")
+    loss_t, grad_t = step("cuda", tf32=True)
+    loss_c, grad_c = step("cpu")
+
+    def grad_gap(grads):
+        # the attention key biases have a true gradient of 0: the softmax
+        # over keys ignores a constant added to every key's logit
+        return max((float((grads[k] - g_c).norm() / g_c.norm()), k)
+                   for k, g_c in grad_c.items()
+                   if not k.endswith("attn.key.bias"))
+
+    worst, worst_tf32 = grad_gap(grad_g), grad_gap(grad_t)
+    log(f"transformer train step TF32 control: loss {loss_t} vs CPU "
+        f"{loss_c}; largest gradient difference {worst_tf32[0]:.3e} of its "
+        f"tensor's norm ({worst_tf32[1]}); full f32: {worst[0]:.3e} "
+        f"({worst[1]}); loss {loss_g}")
+    if worst_tf32[0] <= TF_GRAD_LIMIT:
+        fail(f"transformer train step: the TF32 control passes the gradient "
+             f"limit {TF_GRAD_LIMIT}, so the check cannot tell TF32 from f32")
+    if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+        fail(f"transformer train step: loss {loss_g} (card) vs {loss_c} "
+             f"(CPU)")
+    if worst[0] > TF_GRAD_LIMIT:
+        fail(f"transformer train step: gradient of {worst[1]} differs by "
+             f"{worst[0]:.3e} of its norm (limit {TF_GRAD_LIMIT})")
+
+    card = copy.deepcopy(model).cuda().eval()
+    cpu = copy.deepcopy(model).eval()
+    xs = torch.randint(0, vocab, (bs, seq), generator=g)
+    with torch.no_grad():
+        xd, yd = xs.cuda(), lab.cuda()
+        full = card(xd, y=yd)
+        cache = card.init_cache(bs)
+        kv_err = 0.0
+        for i in range(seq):
+            step_logits = card(xd[:, i:i + 1], y=yd, cache=cache)[:, 0]
+            scale = full[:, i].abs().amax(-1)
+            kv_err = max(kv_err, float(((step_logits - full[:, i]).abs()
+                                        .amax(-1) / scale).max()))
+    if kv_err > 1e-5:
+        fail(f"transformer KV cache: logits differ from the full-prefix "
+             f"forward by {kv_err:.3e} relative")
+
+    n_gen = 100
+    first = torch.randint(0, vocab, (n_gen, 1), generator=g)
+    y_gen = torch.arange(classes).repeat_interleave(n_gen // classes)
+    got = sample_autoregressive(
+        card, first.cuda(), seq - 1,
+        torch.Generator(device="cuda").manual_seed(0), top_k=1,
+        labels=y_gen.cuda()).cpu()
+    want = sample_autoregressive(cpu, first, seq - 1,
+                                 torch.Generator().manual_seed(0), top_k=1,
+                                 labels=y_gen)
+    near_ties = 0
+    for r in torch.nonzero((got != want).any(1)).flatten().tolist():
+        c = int(torch.nonzero(got[r] != want[r])[0])
+        with torch.no_grad():
+            logits = cpu(want[r:r + 1, :c], y=y_gen[r:r + 1])[0, -1]
+        top2 = torch.topk(logits, 2).values
+        if float(top2[0] - top2[1]) > 1e-5 * float(top2[0].abs()):
+            fail(f"greedy sampling: sequence {r} differs from the CPU at "
+                 f"position {c} without a near-tie")
+        near_ties += 1
+
+    # the card's step: wall time per step, device time per step, and the
+    # model's FLOPs at the f32 peak (matmuls and attention, backward 2x)
+    eng = engine("cuda")
+    batch = [a.cuda() for a in (x, t, lab, mask)]
+    eng.train_step(*batch, None)
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eng.train_step(*batch, None)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    parts = kernel_times(lambda: eng.train_step(*batch, None), 5)
+    device_ms = sum(ms for _, ms in parts)
+    mat = sum(p.numel() for k, p in model.named_parameters()
+              if p.ndim == 2 and ("blocks" in k or k.startswith("head")))
+    tokens = bs * (seq - 1)
+    flops = 3 * (2 * mat * tokens + 4 * len(model.blocks) * bs
+                 * (seq - 1) ** 2 * arch["embed_dim"])
+    flops_ms = flops / PEAK_F32 * 1e3
+    log(f"transformer card vs CPU at the preset's width: loss {loss_g} vs "
+        f"{loss_c}; largest gradient difference {worst[0]:.3e} of its "
+        f"tensor's norm ({worst[1]}, limit {TF_GRAD_LIMIT}); KV cache vs "
+        f"full prefix {kv_err:.3e} relative; greedy {n_gen} x {seq - 1} "
+        f"tokens, {near_ties} sequences differ at near-ties")
+    log(f"transformer train step on the card (batch {bs}): wall "
+        f"{step_ms:.3f} ms ({1e3 / step_ms:.2f} steps/s), device time "
+        f"{device_ms:.3f} ms ({device_ms / step_ms:.1%} busy) in "
+        f"{len(parts)} kernel kinds; {flops / 1e9:.2f} GFLOP at the f32 "
+        f"peak {flops_ms:.3f} ms ({flops_ms / step_ms:.1%} of the step)")
+    return {"step_ms": step_ms, "device_ms": device_ms,
+            "flops_ms": flops_ms, "grad_gap": worst[0],
+            "grad_gap_tf32": worst_tf32[0], "kv_err": kv_err,
+            "near_ties": near_ties}
+
+
 def phase_gather_min_tool():
     """The gather-min tool's entry point at its default shapes."""
     from vqvae_tpu_torch.ops.gather_min import gather_min
@@ -939,9 +1181,10 @@ def main() -> None:
         t0 = time.perf_counter()
         pipe = phase_pipeline(work / "pipeline")
         phase_train_step_reference()
+        phase_transformer_reference()
         phase_quality_reference(pipe["exp"], pipe["quality"])
         k4_launches = phase_gather_min_tool()
-        log(f"phases 6-8 {time.perf_counter() - t0:.3f}s")
+        log(f"phases 6-9 {time.perf_counter() - t0:.3f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

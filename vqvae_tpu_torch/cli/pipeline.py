@@ -1,0 +1,176 @@
+"""The six-stage pipeline orchestrator — the port of
+``vqvae_tpu/cli/pipeline.py`` and of ``scripts/run_pipeline.py``'s flags.
+
+One config-driven orchestrator runs the stages in process, in the order
+vae -> codebook -> quality -> transformer -> generate -> evaluate, each
+from ``<preset>/<stage>.yaml`` (a stage without a YAML is not
+configured). The artifact contract between stages is the files under the
+preset's ``experiments/...`` paths, relative to ``root_dir``, where the
+run ``chdir``s for its duration. A failing stage aborts the run unless it
+is in ``NON_CRITICAL`` (the quality gates and the final evaluation, as the
+reference's ``critical=False`` steps): those print the traceback and go
+on, so a caller that needs their outputs checks the files. Per-stage wall
+seconds are returned and, when ``VQVAE_TPU_TIMINGS_PATH`` is set, written
+there as JSON.
+
+Only the spatial codebook builder is ported; a config naming a legacy
+builder (or a reference-style config that implies one) raises
+``NotImplementedError``.
+
+Run: ``python -m vqvae_tpu_torch.cli.pipeline --preset <dir> [--skip-vae
+...] [--timings-out <json>] [--device cpu]``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+from ..config import Config, load_config
+from ..device import resolve_device
+
+STAGES = ("vae", "codebook", "quality", "transformer", "generate", "evaluate")
+NON_CRITICAL = {"quality", "evaluate"}
+
+
+def _stage_config(config_dir: Path, stage: str,
+                  overrides: Optional[Dict] = None) -> Optional[Config]:
+    path = config_dir / f"{stage}.yaml"
+    if not path.exists():
+        return None
+    return load_config(path, overrides=(overrides or {}).get(stage))
+
+
+def codebook_builder(cfg: Config) -> str:
+    """The builder a codebook config names, or the one a reference-style
+    config implies."""
+    builder = cfg.get("builder")
+    if builder is None:
+        if "riemannian" in cfg:
+            return "legacy_riemannian"
+        return "legacy" if "model" in cfg else "spatial"
+    return str(builder)
+
+
+def _run_stage(stage: str, cfg: Config, device) -> None:
+    from . import (build_codebook_main, evaluate_model_main,
+                   generate_samples_main, run_quality_stage,
+                   train_transformer_main, train_vae_main)
+
+    if stage == "vae":
+        train_vae_main(cfg, device=device)
+    elif stage == "codebook":
+        builder = codebook_builder(cfg)
+        if builder != "spatial":
+            raise NotImplementedError(
+                f"codebook builder {builder!r} is not ported (ROADMAP.md "
+                f"queue item 10: the legacy and vanilla codebooks); only "
+                f"'spatial' runs")
+        build_codebook_main(cfg, device=device)
+    elif stage == "quality":
+        rc = run_quality_stage(str(cfg["experiment"]),
+                               dataset=str(cfg.get("dataset",
+                                                   "fashionmnist")),
+                               synthetic_size=cfg.get("synthetic_size"),
+                               device=device)
+        if rc != 0:
+            print("[pipeline] VAE quality gate recommends RETRAIN "
+                  "(continuing: non-critical)")
+    elif stage == "transformer":
+        train_transformer_main(cfg, device=device)
+    elif stage == "generate":
+        generate_samples_main(cfg, device=device)
+    elif stage == "evaluate":
+        evaluate_model_main(cfg, device=device)
+
+
+def run_pipeline(
+    config_dir: str | Path,
+    skip: Iterable[str] = (),
+    overrides: Optional[Dict] = None,
+    root_dir: str | Path = ".",
+    device=None,
+) -> Dict[str, float]:
+    """Run every configured stage under ``config_dir`` on ``device``
+    (default the GPU; raises when CUDA is absent and no device is given);
+    ``overrides`` maps a stage to a dict deep-merged into its YAML. Returns
+    per-stage wall seconds and ``total``."""
+    dev = resolve_device(device)
+    config_dir = Path(config_dir).resolve()
+    if not config_dir.is_dir():
+        raise FileNotFoundError(f"preset directory not found: {config_dir}")
+    if not any((config_dir / f"{s}.yaml").exists() for s in STAGES):
+        raise FileNotFoundError(
+            f"{config_dir} contains no stage configs "
+            f"({', '.join(s + '.yaml' for s in STAGES)})")
+    skip = set(skip)
+    timings: Dict[str, float] = {}
+    t_total = time.perf_counter()
+    prev_cwd = os.getcwd()
+    os.chdir(root_dir)
+    try:
+        for stage in STAGES:
+            if stage in skip:
+                print(f"[pipeline] skipping {stage}")
+                continue
+            cfg = _stage_config(config_dir, stage, overrides)
+            if cfg is None:
+                print(f"[pipeline] no {stage}.yaml — stage not configured")
+                continue
+            print(f"[pipeline] === stage: {stage} ===")
+            t0 = time.perf_counter()
+            try:
+                _run_stage(stage, cfg, dev)
+            except Exception:
+                traceback.print_exc()
+                if stage not in NON_CRITICAL:
+                    raise
+                print(f"[pipeline] non-critical stage {stage} failed; "
+                      f"continuing")
+            timings[stage] = time.perf_counter() - t0
+            print(f"[pipeline] {stage} done in {timings[stage]:.1f}s")
+    finally:
+        os.chdir(prev_cwd)
+
+    timings["total"] = time.perf_counter() - t_total
+    print(f"[pipeline] TOTAL: {timings['total']:.1f}s "
+          f"({ {k: round(v, 1) for k, v in timings.items()} })")
+    timings_path = os.environ.get("VQVAE_TPU_TIMINGS_PATH")
+    if timings_path:
+        with open(timings_path, "w") as f:
+            json.dump(timings, f, indent=2)
+    return timings
+
+
+def main(argv=None) -> Dict[str, float]:
+    parser = argparse.ArgumentParser(
+        description="Run the pipeline's stages (PyTorch port).")
+    parser.add_argument("--preset", required=True,
+                        help="configs/<dataset>/<variant>/<distance> "
+                             "directory")
+    for stage in STAGES:
+        parser.add_argument(f"--skip-{stage}", action="store_true")
+    # the reference's flag names
+    parser.add_argument("--skip-generation", action="store_true",
+                        dest="skip_generate")
+    parser.add_argument("--skip-evaluation", action="store_true",
+                        dest="skip_evaluate")
+    parser.add_argument("--timings-out", default=None,
+                        help="write per-stage wall seconds as JSON here")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    skip = {s for s in STAGES if getattr(args, f"skip_{s}")}
+    timings = run_pipeline(args.preset, skip=skip, device=args.device)
+    if args.timings_out:
+        with open(args.timings_out, "w") as f:
+            json.dump(timings, f, indent=2)
+    return timings
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,6 @@
 from .state import cosine_per_epoch_schedule, make_optimizer
+from .transformer_engine import TransformerEngine, sample_autoregressive
 from .vae_engine import VAEEngine
 
-__all__ = ["VAEEngine", "cosine_per_epoch_schedule", "make_optimizer"]
+__all__ = ["VAEEngine", "TransformerEngine", "sample_autoregressive",
+           "cosine_per_epoch_schedule", "make_optimizer"]

@@ -12,6 +12,14 @@ not readable here, but a path that names one (``.../checkpoints/best``,
 as the stage presets do) resolves to the sibling ``best.pt`` when the port
 wrote one.
 
+Transformer checkpoints are ``.pt`` files of the same kind:
+``<out>/checkpoints/best.pt`` and ``latest.pt`` hold
+``{'model_state_dict', 'optimizer_state_dict', 'step', 'epoch'}`` when a
+stage ends, and the ``latest.pt`` written after each epoch holds the
+weights without the optimizer, as the JAX engine writes it.
+``transformer_state_dict_from_jax`` carries flax's transformer params
+across.
+
 ``vae_state_dict_from_jax`` is the port's own copy of that mapping
 (``vqvae_tpu/utils/torch_compat.py:160-251``), from the JAX ``variables``
 as nested dicts of numpy arrays: HWIO -> OIHW for convs, HWIO -> IOHW with
@@ -122,6 +130,44 @@ def vae_state_dict_from_jax(variables: Mapping, topology: str, enc_channels,
             put_bn(f"decoder.{blk}.1", "decoder", f"BatchNorm_{i}")
         sd["decoder.output_layer.weight"] = _conv_t(dec["out"]["kernel"])
         sd["decoder.output_layer.bias"] = _t(dec["out"]["bias"])
+    return sd
+
+
+def transformer_state_dict_from_jax(params: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.Transformer`` from flax's ``params`` (nested
+    dicts of numpy arrays). Dense kernels (in, out) become (out, in);
+    attention's q/k/v kernels (D, H, hd) and biases (H, hd) flatten the
+    heads, its output kernel (H, hd, D) flattens them on the input side.
+    ``class_emb`` is carried whenever flax materialised it."""
+    sd: Dict[str, torch.Tensor] = {
+        "token_emb.weight": _t(params["token_emb"]["embedding"]),
+        "pos_emb": _t(params["pos_emb"]),
+        "ln_f.weight": _t(params["ln_f"]["scale"]),
+        "ln_f.bias": _t(params["ln_f"]["bias"]),
+        "head.weight": _t(np.asarray(params["head"]["kernel"]).T),
+    }
+    if "class_emb" in params:
+        sd["class_emb.weight"] = _t(params["class_emb"]["embedding"])
+    n_layers = sum(1 for k in params if k.startswith("block_"))
+    for i in range(n_layers):
+        blk, pre = params[f"block_{i}"], f"blocks.{i}"
+        for ln, name in (("LayerNorm_0", "ln1"), ("LayerNorm_1", "ln2")):
+            sd[f"{pre}.{name}.weight"] = _t(blk[ln]["scale"])
+            sd[f"{pre}.{name}.bias"] = _t(blk[ln]["bias"])
+        for proj in ("query", "key", "value"):
+            kern = np.asarray(blk["attn"][proj]["kernel"])
+            sd[f"{pre}.attn.{proj}.weight"] = _t(
+                kern.reshape(kern.shape[0], -1).T)
+            sd[f"{pre}.attn.{proj}.bias"] = _t(
+                np.asarray(blk["attn"][proj]["bias"]).reshape(-1))
+        kern = np.asarray(blk["attn"]["out"]["kernel"])
+        sd[f"{pre}.attn.out.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
+        sd[f"{pre}.attn.out.bias"] = _t(blk["attn"]["out"]["bias"])
+        for dense, name in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
+            sd[f"{pre}.{name}.weight"] = _t(np.asarray(
+                blk[dense]["kernel"]).T)
+            sd[f"{pre}.{name}.bias"] = _t(blk[dense]["bias"])
     return sd
 
 

@@ -4,7 +4,9 @@
 The PNG writer is a small standard-library encoder (``zlib`` + ``struct``,
 8-bit grayscale or RGB, no filtering), so the port needs no imaging
 package; its pixels are those the JAX package writes through PIL
-(``round(clip(x, 0, 1) * 255)``).
+(``round(clip(x, 0, 1) * 255)``). ``load_image`` is the matching reader:
+8-bit grayscale, RGB and RGBA, not interlaced, with all five row filters
+(PIL's writer picks a filter per row).
 """
 from __future__ import annotations
 
@@ -85,3 +87,84 @@ def save_image(img: np.ndarray, path: str | Path) -> Path:
         arr = arr[..., 0]
     path.write_bytes(encode_png(arr))
     return path
+
+
+_CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG colour type -> samples per pixel
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(data: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (None, Sub, Up, Average, Paeth)."""
+    stride = w * bpp
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype = data[y * (stride + 1)]
+        raw = np.frombuffer(data, np.uint8, stride, y * (stride + 1) + 1)
+        if ftype == 0:
+            row = raw.copy()
+        elif ftype == 1:  # Sub: a running sum along each sample lane
+            row = (np.cumsum(raw.reshape(w, bpp).astype(np.int64), axis=0)
+                   % 256).astype(np.uint8).reshape(-1)
+        elif ftype == 2:  # Up
+            row = raw + prior
+        elif ftype in (3, 4):  # Average, Paeth: byte by byte
+            cur = bytearray(stride)
+            r, up = raw.tolist(), prior.tolist()
+            for i in range(stride):
+                left = cur[i - bpp] if i >= bpp else 0
+                if ftype == 3:
+                    pred = (left + up[i]) >> 1
+                else:
+                    pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
+                cur[i] = (r[i] + pred) & 0xFF
+            row = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {ftype}")
+        out[y] = row
+        prior = row
+    return out
+
+
+def decode_png(buf: bytes) -> np.ndarray:
+    """uint8 (H, W, C) pixels of an 8-bit grayscale, RGB or RGBA PNG."""
+    if buf[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(buf):
+        (length,) = struct.unpack(">I", buf[pos:pos + 4])
+        tag = buf[pos + 4:pos + 8]
+        body = buf[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color_type, _, _, interlace = header
+    if depth != 8 or color_type not in _CHANNELS or interlace:
+        raise ValueError(f"PNG reader takes 8-bit, non-interlaced gray, RGB "
+                         f"or RGBA; got depth {depth}, colour type "
+                         f"{color_type}, interlace {interlace}")
+    bpp = _CHANNELS[color_type]
+    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp)
+    return pixels.reshape(h, w, bpp)
+
+
+def load_image(path: str | Path) -> np.ndarray:
+    """A PNG as (H, W, C) float32 in [0, 1] (pixel / 255 in float32, as
+    the JAX package's PIL reader gives it); alpha is dropped."""
+    img = decode_png(Path(path).read_bytes()).astype(np.float32) / 255.0
+    if img.shape[-1] == 4:
+        img = img[..., :3]
+    return img
