@@ -25,12 +25,16 @@ Phases, each printed as it ends:
      tensor cores plus a compare, and beside it the first version's
      CUDA-core f32 bound;
    - K3 at the quality stage's 160,000 rows x 16 against 512 codes (val-
-     and medoid-like draws of the same latents) and at a ragged 1,037 x 5
-     against 130: at most 1e-4 of the rows may differ, only at near-ties
-     (exact distances within 1e-5 relative), and distances within 1e-5
-     relative. Yardstick: ``(|c|^2 - 2 z c^T).min(1)``. At 160,000 rows
-     also one call's device time by kernel (``torch.profiler``: the prep
-     launch and the main kernel) and the wrapper's host time per call;
+     and medoid-like draws of the same latents), at a ragged 1,037 x 5
+     against 130, and at the vanilla presets' flat width D = 128 (K3's
+     widest) against 512 codes: the vanilla quality stage's 1,000 rows
+     (its quantization-loss call) and 10,000 rows (its codebook-health
+     call), and 60,000 rows: at most 1e-4 of the rows may differ, only at
+     near-ties (exact distances within 1e-5 relative), and distances
+     within 1e-5 relative. Yardstick: ``(|c|^2 - 2 z c^T).min(1)``. At
+     160,000 x 16 and at 1,000 x 128 also one call's device time by kernel
+     (``torch.profiler``: the prep launch and the main kernel) and the
+     wrapper's host time per call;
    - K4 at the gather-min tool's shapes (196,608 x K rows, 2^20 indices,
      K in 256, 512, 1024) and at 4,096 indices into 196,608 x 1024
      (sparse), where it must take the scan route, and at 16 indices, where
@@ -90,7 +94,37 @@ Phases, each printed as it ends:
    CPU (codes identical except at near-ties, PSNRs within 1e-3 dB);
 9. the gather-min tool through its entry point at its default shapes, its
    K4 launches counted per width and per route (the scan route must run);
-10. one JSON line of per-kernel numbers, then the device line.
+10. the vanilla geodesic preset (``configs/fashionmnist/vanilla/geodesic``:
+   flat latent 128, encoder 64/128/256, decoder 256/128/64, batch 256;
+   transformer embed 512, 8 layers, 8 heads, two positions) through
+   ``run_pipeline`` in one call, every stage at the preset's settings but
+   the depth: vae 2 of 200 epochs on the synthetic 60,000 / 10,000 split,
+   the ``legacy_riemannian`` codebook on all 60,000 flat latents (k = 20
+   union exact, K = 512 kpp_parallel, 5,000 subset edges, batch 4,096),
+   quality (K3 at D = 128), the transformer 2 of 200 epochs, generate and
+   evaluate; then the ``legacy`` (Euclidean) builder on the same latents.
+   Checked: both graph files, codes (60,000,) with -1 only off the LCC
+   and values under 512, 512 medoids and a finite QE, the quality JSONs,
+   finite and falling transformer losses, the 302 x 302 sample grid,
+   finite PSNR / SSIM, and K3 launched. Logged: seconds by stage;
+11. the EMA VQ-VAE baseline at the full width of
+   ``configs/baseline_vqvae/config.yaml`` (3 channels, z 128, hidden 256,
+   2 res blocks, 512 codes, batch 128, lr 2e-4, clip 1.0, beta 0.25, EMA
+   0.99) through ``run_baseline_pipeline``: 2 of 100 epochs on the
+   synthetic CIFAR-10 stand-in (60,000 / 10,000 images, as for every
+   dataset), then ``evaluate_baseline``, then ``eval_codebook_metrics``. Checked: finite, falling losses,
+   perplexity > 1 and usage > 0, the three evaluation files, the CSV row
+   and a recon PNG read back by the port's reader. Logged: steps/s per
+   epoch, and one step's wall and device ms (``torch.profiler``);
+12. one baseline train step at that width on the card against the CPU,
+   from the same weights, codebook, batch (the last 16 of 128 rows
+   padding, mask 0) and bank draw: the loss within rtol 1e-5, each
+   gradient within ``VQ_GRAD_LIMIT`` of its tensor's norm (a TF32 control
+   must fail that limit), each code of the EMA codebook after the step
+   within 1e-5 of its norm (codes a near-tie row moved are counted and
+   left out), and
+   ``quantize``'s indices equal except at near-ties;
+13. one JSON line of per-kernel numbers, then the device line.
 """
 from __future__ import annotations
 
@@ -135,6 +169,16 @@ GRAD_LIMIT = 2e-3
 # the same for one transformer step at the preset's width (full f32 on the
 # card against the CPU, and the TF32 control); see PERF.md
 TF_GRAD_LIMIT = 1e-4
+K3_WIDE = 128                       # the vanilla presets' flat latent width
+K3_WIDE_ROWS = (1_000, 10_000, 60_000)
+VANILLA = "configs/fashionmnist/vanilla/geodesic"
+VANILLA_VAE_EPOCHS = 2
+VANILLA_TF_EPOCHS = 2
+BASELINE = "configs/baseline_vqvae/config.yaml"
+BASELINE_EPOCHS = 2
+# the same for one baseline VQ-VAE step at the config's width: full f32
+# read 4.0e-5 on an H100, the TF32 control 4.7e-3; see PERF.md
+VQ_GRAD_LIMIT = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -175,20 +219,26 @@ def cuda_ms(fn, reps: int) -> float:
 
 def kernel_times(fn, calls: int = 1):
     """[(kernel name, device ms per call)] of ``calls`` calls of ``fn``
-    (``torch.profiler``), largest first."""
+    (``torch.profiler``), largest first. A session that records no device
+    time (seen once in a run of many sessions) is taken again, twice at
+    most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sorted(
-        ((ev.key.replace("void ", "").replace("(anonymous namespace)::",
-                                              "").split("(")[0],
-          ev.device_time_total / 1e3 / calls)
-         for ev in prof.key_averages() if ev.device_time_total > 0),
-        key=lambda kv: -kv[1])
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        parts = sorted(
+            ((ev.key.replace("void ", "").replace("(anonymous namespace)::",
+                                                  "").split("(")[0],
+              ev.device_time_total / 1e3 / calls)
+             for ev in prof.key_averages() if ev.device_time_total > 0),
+            key=lambda kv: -kv[1])
+        if parts:
+            return parts
+    fail("torch.profiler recorded no device time in three sessions")
 
 
 def phase_device():
@@ -482,7 +532,8 @@ def phase_reference(z, work: Path):
         f"{float(np.mean(cg == cc)):.4f}")
 
 
-def near_tie_rows(z, cb, idx, ref_idx, rel: float = 1e-5) -> int:
+def near_tie_rows(z, cb, idx, ref_idx, rel: float = 1e-5,
+                  name: str = "K3") -> int:
     """Rows where two assignments differ; fails unless the two codes' exact
     (f64) distances are within ``rel`` of each other."""
     import torch
@@ -494,7 +545,7 @@ def near_tie_rows(z, cb, idx, ref_idx, rel: float = 1e-5) -> int:
         b = ((zd - cb[ref_idx[differ]].double()) ** 2).sum(1)
         gap = (a - b).abs() / torch.minimum(a, b).clamp_min(1e-30)
         if float(gap.max()) > rel:
-            fail(f"K3: a row differs beyond a near-tie (relative gap "
+            fail(f"{name}: a row differs beyond a near-tie (relative gap "
                  f"{float(gap.max()):.3e} > {rel})")
     return int(differ.numel())
 
@@ -620,6 +671,17 @@ def phase_kernels_assign_gather():
     cbr = torch.from_numpy(rng.normal(size=(130, 5)).astype(np.float32))
     check_assign("K3 assign (ragged 1037 x 5, 130 codes)", zr.cuda(),
                  cbr.cuda(), 20)
+    del zd, cb
+    zw = make_latents(K3_WIDE_ROWS[-1] + K3_CODES, K3_WIDE, seed=2)
+    zd = torch.from_numpy(zw[:K3_WIDE_ROWS[-1]]).cuda()
+    cb = torch.from_numpy(zw[K3_WIDE_ROWS[-1]:]).cuda()
+    for rows in K3_WIDE_ROWS:
+        res = check_assign(f"K3 assign ({rows} x {K3_WIDE}, {K3_CODES} "
+                           f"codes)", zd[:rows].contiguous(), cb, 20,
+                           split=(rows == K3_WIDE_ROWS[0]))
+        if rows == K3_WIDE_ROWS[0]:
+            out[f"K3@{K3_WIDE}"] = res
+    del zd, cb
     gen = torch.Generator(device="cuda").manual_seed(0)
     for k in K4_WIDTHS:
         out[f"K4@{k}"] = check_gather_min(k, gen, route="scan")
@@ -666,7 +728,7 @@ def read_launches():
 def quality_outputs(exp: Path) -> dict:
     import json as _json
 
-    files = sorted(exp.glob("vae/*/vae_quality_assessment.json")) + [
+    files = sorted(exp.glob("vae/**/vae_quality_assessment.json")) + [
         exp / "evaluation" / "quantization_analysis.json",
         exp / "evaluation" / "codebook_health.json"]
     missing = [str(f) for f in files if not f.exists()]
@@ -1149,6 +1211,363 @@ def phase_gather_min_tool():
     return {k: r["launches"] for k, r in res.items()}
 
 
+def phase_vanilla(work: Path):
+    """The vanilla geodesic preset through ``run_pipeline`` (all six
+    stages, ``legacy_riemannian``), then the ``legacy`` builder on the same
+    latents; returns the launches, seconds by stage and the QEs."""
+    import json as _json
+
+    import numpy as np
+    import yaml
+
+    from vqvae_tpu_torch.cli import (build_codebook_legacy_main,
+                                     load_codebook, run_pipeline)
+    from vqvae_tpu_torch.cli.pipeline import STAGES
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.utils.images import load_image
+
+    preset = ROOT / VANILLA
+    exp = work / load_config(preset / "quality.yaml")["experiment"]
+    overrides = {"vae": {"max_epochs": VANILLA_VAE_EPOCHS,
+                         "data": {"root": str(work / "no-data")}},
+                 "transformer": {"training": {"epochs": VANILLA_TF_EPOCHS}}}
+    work.mkdir(parents=True, exist_ok=True)
+    zero_launches()
+    seconds = run_pipeline(preset, overrides=overrides, root_dir=work,
+                           device="cuda")
+    launches = read_launches()
+    if list(seconds) != list(STAGES) + ["total"]:
+        fail(f"vanilla pipeline ran {list(seconds)}")
+
+    cb_dir = exp / "codebook"
+    tf_dir = exp / "transformer"
+    evaluation = exp / "evaluation"
+    for path in (exp / "vae" / "checkpoints" / "best.pt",
+                 exp / "vae" / "latents_train" / "latents.npz",
+                 cb_dir / "knn_graph.npz", cb_dir / "knn_graph_riemannian.npz",
+                 cb_dir / "codebook.npz", cb_dir / "codes.npy",
+                 tf_dir / "checkpoints" / "best.pt", tf_dir / "metrics.jsonl",
+                 evaluation / "generated_samples.png",
+                 evaluation / "metrics.yaml"):
+        if not path.exists():
+            fail(f"vanilla pipeline artifact {path} missing")
+    quality = quality_outputs(exp)
+
+    def check_codebook(out: Path, label: str):
+        codes = np.load(out / "codes.npy")
+        cb = load_codebook(out)
+        rec = cb["config"]
+        if codes.shape != (60_000,) or codes.max() >= 512:
+            fail(f"{label}: codes shape {codes.shape}, max {codes.max()}")
+        if int((codes >= 0).sum()) != rec["lcc_nodes"]:
+            fail(f"{label}: -1 codes do not match the LCC "
+                 f"({rec['lcc_nodes']} nodes)")
+        if len(cb["medoid_indices"]) != 512 or not np.isfinite(
+                rec["quantization_error"]):
+            fail(f"{label}: {len(cb['medoid_indices'])} medoids, QE "
+                 f"{rec['quantization_error']}")
+        return rec
+
+    riem = check_codebook(cb_dir, "legacy_riemannian")
+    cfg = load_config(preset / "codebook.yaml", {
+        "builder": "legacy",
+        "latents_path": str(exp / "vae" / "latents_train"),
+        "vae_ckpt_path": str(exp / "vae" / "checkpoints" / "best"),
+        "out_dir": str(exp / "codebook_euclidean")})
+    t0 = time.perf_counter()
+    out = build_codebook_legacy_main(cfg, riemannian=False, device="cuda")
+    t_euclid = time.perf_counter() - t0
+    if (out / "knn_graph_riemannian.npz").exists():
+        fail("the legacy builder wrote a Riemannian graph")
+    euclid = check_codebook(out, "legacy")
+
+    tf_rows = [_json.loads(line) for line in
+               (tf_dir / "metrics.jsonl").read_text().splitlines()]
+    tf_losses = [(r["train_loss"], r["val_loss"]) for r in tf_rows]
+    if len(tf_rows) != VANILLA_TF_EPOCHS or not np.all(
+            np.isfinite(tf_losses)):
+        fail(f"vanilla transformer: {len(tf_rows)} epochs, {tf_losses}")
+    if not tf_rows[-1]["train_loss"] < tf_rows[0]["train_loss"]:
+        fail(f"vanilla transformer: train loss did not fall: {tf_losses}")
+    grid = load_image(evaluation / "generated_samples.png")
+    if grid.shape[:2] != (302, 302):
+        fail(f"vanilla generated_samples.png is {grid.shape}")
+    metrics = yaml.safe_load((evaluation / "metrics.yaml").read_text())
+    if not (np.isfinite(metrics["PSNR_full"])
+            and np.isfinite(metrics["SSIM_full"])):
+        fail(f"vanilla evaluation metrics {metrics}")
+    if launches["K3"] <= 0:
+        fail("the vanilla quality stage launched no K3 kernel")
+    vae_rows = [_json.loads(line) for line in
+                (exp / "vae" / "metrics.jsonl").read_text().splitlines()]
+    rates = [r["train_steps"] / r["train_seconds"] for r in vae_rows]
+    tf_rates = [r["train_steps"] / r["train_seconds"] for r in tf_rows]
+    shown = ("psnr", "quality", "health", "entropy", "used")
+    log("vanilla pipeline seconds by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    log(f"vanilla: vae steps/s per epoch "
+        f"{', '.join(f'{r:.2f}' for r in rates)}; legacy_riemannian "
+        f"{riem['lcc_nodes']} LCC nodes, QE {riem['quantization_error']}, "
+        f"steps {riem['timings_s']}; transformer steps/s per epoch "
+        f"{', '.join(f'{r:.2f}' for r in tf_rates)}, (train, val) loss "
+        f"{', '.join(f'({a:.4f}, {b:.4f})' for a, b in tf_losses)}; "
+        f"evaluate PSNR {metrics['PSNR_full']}, SSIM {metrics['SSIM_full']};"
+        f" launches {launches}")
+    log("vanilla quality: " + "; ".join(
+        name + ": " + ", ".join(f"{k} {v}" for k, v in q.items()
+                                if k.startswith(shown))
+        for name, q in quality.items()))
+    log(f"vanilla legacy (Euclidean) builder: {t_euclid:.3f}s, "
+        f"{euclid['lcc_nodes']} LCC nodes, QE {euclid['quantization_error']},"
+        f" steps {euclid['timings_s']}")
+    return {"launches": launches, "seconds": seconds,
+            "euclid_s": t_euclid}
+
+
+def baseline_config(work: Path) -> Path:
+    """The baseline's config at full width, 2 epochs, rooted at ``work``
+    (no dataset files there: the synthetic CIFAR-10 split); its path."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / BASELINE).read_text())
+    cfg["out_dir"] = str(work / "baseline")
+    cfg["data"]["root"] = str(work / "no-data")
+    cfg["train"]["epochs"] = BASELINE_EPOCHS
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "baseline.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def phase_baseline(work: Path):
+    """The baseline through ``run_baseline_pipeline`` and
+    ``eval_codebook_metrics_main``; then one step's wall and device ms."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from vqvae_tpu_torch.cli import (eval_codebook_metrics_main,
+                                     run_baseline_pipeline)
+    from vqvae_tpu_torch.cli.train_baseline_vqvae import (
+        baseline_model, baseline_split_loader)
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.train import VQVAEEngine
+    from vqvae_tpu_torch.utils.images import load_image
+
+    path = baseline_config(work)
+    cfg = load_config(path)
+    base = Path(cfg["out_dir"])
+    timings = run_baseline_pipeline(path, device="cuda")
+    t0 = time.perf_counter()
+    metrics = eval_codebook_metrics_main(cfg, split="test", device="cuda")
+    timings["eval_codebook_metrics"] = time.perf_counter() - t0
+    rows = [_json.loads(line) for line in
+            (base / "metrics.jsonl").read_text().splitlines()]
+    losses = [(r["train_loss"], r["val_loss"]) for r in rows]
+    if len(rows) != BASELINE_EPOCHS or not np.all(np.isfinite(losses)):
+        fail(f"baseline training: {len(rows)} epochs, losses {losses}")
+    if not rows[-1]["train_loss"] < rows[0]["train_loss"]:
+        fail(f"baseline training: train loss did not fall: {losses}")
+    if not (rows[-1]["val_perplex"] > 1.0 and rows[-1]["val_usage"] > 0.0):
+        fail(f"baseline training: perplexity {rows[-1]['val_perplex']}, "
+             f"usage {rows[-1]['val_usage']}")
+    ev = base / "evaluation"
+    results = {}
+    for name in ("evaluation_results.json", "metrics.yaml",
+                 "codebook_health.json", "generated_samples.png"):
+        if not (ev / name).exists():
+            fail(f"baseline evaluation file {name} missing")
+    results = _json.loads((ev / "evaluation_results.json").read_text())
+    health = _json.loads((ev / "codebook_health.json").read_text())
+    if not (np.isfinite(results["recon_psnr"])
+            and np.isfinite(results["recon_ssim"])
+            and results["perplexity"] > 1.0):
+        fail(f"baseline evaluation {results}")
+    table = (base / "codebook_eval_test.csv").read_text().splitlines()
+    if len(table) != 2 or not table[1].startswith("test,"):
+        fail(f"baseline codebook_eval_test.csv: {table}")
+    if not (metrics["perplex"] > 1.0 and metrics["usage"] > 0.0):
+        fail(f"baseline codebook metrics {metrics}")
+    recon = load_image(base / f"recon_epoch{BASELINE_EPOCHS:04d}.png")
+    if recon.shape != (4 * 34 + 2, 8 * 34 + 2, 3):
+        fail(f"baseline recon grid {recon.shape}")
+    rates = [r["train_steps"] / r["train_seconds"] for r in rows]
+
+    # one step at the config's width: wall time and device time
+    m = cfg["model"]
+    eng = VQVAEEngine(baseline_model(m), n_codes=int(m["n_codes"]),
+                      beta=float(m["beta"]), ema_decay=float(m["ema_decay"]),
+                      lr=float(cfg["train"]["lr"]),
+                      grad_clip=float(cfg["train"]["grad_clip"]),
+                      seed=int(cfg["seed"]), device="cuda")
+    cb, bank = eng.init_state()
+    loader = baseline_split_loader(cfg, int(cfg["train"]["batch_size"]),
+                                   train=True)
+    x, mask, _, _ = eng.device_dataset(loader, loader.batch_size)
+    bs = loader.batch_size
+    xb, mb = x[:bs], mask[:bs]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = [cb, bank]
+
+    def step():
+        state[0], state[1], _ = eng.train_step(state[0], state[1], xb, mb,
+                                               gen)
+
+    step()
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    parts = kernel_times(step, 5)
+    device_ms = sum(ms for _, ms in parts)
+    # the step's convolutions and products, forward and backward
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        step()
+    flops = counter.get_total_flops()
+    flops_ms = flops / PEAK_F32 * 1e3
+    log(f"baseline seconds: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in timings.items()))
+    log(f"baseline: {BASELINE_EPOCHS} epochs of {rows[0]['train_steps']} "
+        f"steps, steps/s per epoch {', '.join(f'{r:.2f}' for r in rates)}; "
+        f"(train, val) loss {', '.join(f'({a:.4f}, {b:.4f})' for a, b in losses)}"
+        f"; val perplexity {rows[-1]['val_perplex']:.2f}, usage "
+        f"{rows[-1]['val_usage']:.3f}, reseeded {rows[-1]['reseeded']}; "
+        f"evaluate {results}, health {health['health_assessment']}; "
+        f"test metrics {({k: round(v, 5) for k, v in metrics.items()})}")
+    log(f"baseline train step on the card (batch {bs}): wall "
+        f"{step_ms:.3f} ms ({1e3 / step_ms:.2f} steps/s), device time "
+        f"{device_ms:.3f} ms ({device_ms / step_ms:.1%} busy) in "
+        f"{len(parts)} kernel kinds; {flops / 1e9:.2f} GFLOP at the f32 "
+        f"peak {flops_ms:.3f} ms ({flops_ms / step_ms:.1%} of the step); "
+        f"largest: " + "; ".join(f"{key[:40]} {t:.3f} ms"
+                                 for key, t in parts[:4]))
+    return {"timings": timings, "steps_per_s": rates, "step_ms": step_ms,
+            "device_ms": device_ms, "flops_ms": flops_ms}
+
+
+def phase_baseline_step_reference(seed: int = 42):
+    """One baseline train step at the config's width on the card against
+    the CPU, from the same weights, codebook, batch and bank draw."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.data import load_dataset
+    from vqvae_tpu_torch.device import resolve_device
+    from vqvae_tpu_torch.models.vae import flax_init_
+    from vqvae_tpu_torch.models.vqvae_baseline import CodebookState, quantize
+    from vqvae_tpu_torch.cli.train_baseline_vqvae import baseline_model
+    from vqvae_tpu_torch.train import VQVAEEngine
+    from vqvae_tpu_torch.train.vae_engine import seeded_generator
+
+    cfg = load_config(ROOT / BASELINE)
+    m, tr = cfg["model"], cfg["train"]
+    bs, n_codes = int(tr["batch_size"]), int(m["n_codes"])
+    model = flax_init_(baseline_model(m), seeded_generator("cpu", seed))
+    cb0 = CodebookState.create(seeded_generator("cpu", seed, 1), n_codes,
+                               int(m["z_channels"]))
+    split = load_dataset("cifar10", root="no-such-dir", train=True,
+                         synthetic_size=bs, seed=seed)
+    x = torch.from_numpy(split.denormalize(split.images) * 2.0 - 1.0).float()
+    mask = torch.ones(bs)
+    x[-16:], mask[-16:] = 0.0, 0.0  # a padded tail, as the padded set has
+
+    def step(dev, tf32=False):
+        eng = VQVAEEngine(copy.deepcopy(model), n_codes=n_codes,
+                          beta=float(m["beta"]),
+                          ema_decay=float(m["ema_decay"]),
+                          ema_eps=float(m["ema_eps"]), lr=float(tr["lr"]),
+                          grad_clip=float(tr["grad_clip"]), seed=seed,
+                          device=dev)
+        grads, run_opt = {}, eng.opt.step
+
+        def snapshot_then_step():  # the gradients before clipping
+            grads.update({k: p.grad.detach().cpu().clone()
+                          for k, p in eng.model.named_parameters()})
+            run_opt()
+
+        eng.opt.step = snapshot_then_step
+        if tf32:  # the control: the engine has set full f32; undo it
+            set_tf32()
+        try:
+            with torch.no_grad():
+                _, idx = quantize(cb0.to(dev), eng.model.encode(x.to(dev)))
+                z_e = eng.model.encode(x.to(dev)).cpu()
+            cb, _, met = eng.train_step(
+                cb0.to(dev), torch.zeros(eng.bank_size, cb0.embed.shape[1],
+                                         device=dev),
+                x.to(dev), mask.to(dev), seeded_generator("cpu", seed, 2))
+        finally:
+            resolve_device(dev)  # full f32 again
+        return (float(met["loss"]), grads, cb.to("cpu"), idx.cpu(), z_e)
+
+    loss_g, grad_g, cb_g, idx_g, z_g = step("cuda")
+    loss_t, grad_t, _, _, _ = step("cuda", tf32=True)
+    loss_c, grad_c, cb_c, idx_c, z_c = step("cpu")
+
+    flat = z_c.reshape(-1, z_c.shape[-1])
+    n_ties = near_tie_rows(flat, cb0.embed, idx_g.reshape(-1),
+                           idx_c.reshape(-1), name="baseline quantize")
+
+    def grad_gap(grads):
+        return max((float((grads[k] - g_c).norm() / g_c.norm()), k)
+                   for k, g_c in grad_c.items())
+
+    worst, worst_tf32 = grad_gap(grad_g), grad_gap(grad_t)
+    log(f"baseline train step TF32 control: loss {loss_t} vs CPU {loss_c}; "
+        f"largest gradient difference {worst_tf32[0]:.3e} of its tensor's "
+        f"norm ({worst_tf32[1]}); full f32: {worst[0]:.3e} ({worst[1]}); "
+        f"quantize rows differing at near-ties: {n_ties}")
+    if worst_tf32[0] <= VQ_GRAD_LIMIT:
+        fail(f"baseline train step: the TF32 control passes the gradient "
+             f"limit {VQ_GRAD_LIMIT}, so the check cannot tell TF32 from "
+             f"f32")
+    if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+        fail(f"baseline train step: loss {loss_g} (card) vs {loss_c} (CPU)")
+    if worst[0] > VQ_GRAD_LIMIT:
+        fail(f"baseline train step: gradient of {worst[1]} differs by "
+             f"{worst[0]:.3e} of its norm (limit {VQ_GRAD_LIMIT})")
+    # codes whose members a near-tie row moved get other EMA sums
+    moved = torch.unique(torch.cat([idx_g.reshape(-1)[idx_g.reshape(-1)
+                                                      != idx_c.reshape(-1)],
+                                    idx_c.reshape(-1)[idx_g.reshape(-1)
+                                                      != idx_c.reshape(-1)]]))
+    keep = torch.ones(n_codes, dtype=torch.bool)
+    keep[moved] = False
+    # each code held as a whole: a code's EMA sum adds its members' z_e,
+    # whose elements cancel, so one element's relative error says nothing
+    worst_cb, worst_elem = 0.0, 0.0
+    for key in ("embed", "cluster_size", "embed_avg"):
+        a, b = getattr(cb_g, key)[keep], getattr(cb_c, key)[keep]
+        if a.ndim == 1:
+            a, b = a[:, None], b[:, None]
+        gap = float(((a - b).norm(dim=1)
+                     / b.norm(dim=1).clamp_min(1e-30)).max())
+        worst_elem = max(worst_elem, float(((a - b).abs()
+                                            / b.abs().clamp_min(1e-30))
+                                           .max()))
+        worst_cb = max(worst_cb, gap)
+        if gap > 1e-5:
+            fail(f"baseline train step: EMA codebook {key} differs by "
+                 f"{gap:.3e} of a code's norm")
+    log(f"baseline train step card vs CPU: loss {loss_g} vs {loss_c}; "
+        f"largest gradient difference {worst[0]:.3e} of its tensor's norm "
+        f"({worst[1]}, limit {VQ_GRAD_LIMIT}); EMA codebook within "
+        f"{worst_cb:.3e} of a code's norm (elementwise {worst_elem:.3e} "
+        f"relative; {int(moved.numel())} codes left out); "
+        f"{n_ties} of {idx_c.numel()} codes differ at near-ties")
+    return {"grad_gap": worst[0], "grad_gap_tf32": worst_tf32[0],
+            "near_ties": n_ties}
+
+
 def main() -> None:
     try:
         import torch
@@ -1185,11 +1604,19 @@ def main() -> None:
         phase_quality_reference(pipe["exp"], pipe["quality"])
         k4_launches = phase_gather_min_tool()
         log(f"phases 6-9 {time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+        vanilla = phase_vanilla(work / "vanilla")
+        log(f"phase 10 {time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+        phase_baseline(work / "baseline")
+        phase_baseline_step_reference()
+        log(f"phases 11-12 {time.perf_counter() - t0:.3f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     launches = {"K1": k1_launches, "K2": k2_launches,
                 "K3": pipe["launches"]["K3"],
+                f"K3@{K3_WIDE}": vanilla["launches"]["K3"],
                 **{f"K4@{w}": k4_launches[w] for w in K4_WIDTHS}}
     entries = []
     for kid, name, source, replaces in (
@@ -1199,6 +1626,8 @@ def main() -> None:
              "vqvae_tpu/ops/pallas_knn.py:58"),
             ("K3", "nearest-code assign", "assign.cu",
              "vqvae_tpu/ops/pallas_assign.py:33"),
+            (f"K3@{K3_WIDE}", f"nearest-code assign D={K3_WIDE}",
+             "assign.cu", "vqvae_tpu/ops/pallas_assign.py:33"),
             *((f"K4@{w}", f"gather-min K={w}", "gather_min.cu",
                "tools/bench_pallas_gather.py:39") for w in K4_WIDTHS)):
         k = kernels[kid]

@@ -141,19 +141,29 @@ _IMPORT_CHECK = textwrap.dedent("""
     import torch
     from scipy import sparse
     import numpy as np
-    from vqvae_tpu_torch.cli import (build_codebook_main,
+    from vqvae_tpu_torch.cli import (build_codebook_legacy_main,
+                                     build_codebook_main,
+                                     eval_codebook_metrics_main,
+                                     evaluate_baseline_main,
                                      evaluate_codebook_health_main,
                                      evaluate_model_main,
                                      evaluate_quantization_loss_main,
                                      evaluate_vae_quality_main,
-                                     generate_samples_main, run_pipeline,
+                                     generate_samples_main,
+                                     run_baseline_pipeline, run_pipeline,
+                                     train_baseline_main,
                                      train_transformer_main,
                                      train_vae_main)
-    from vqvae_tpu_torch.cli import pipeline
+    from vqvae_tpu_torch.cli import (eval_codebook_metrics,
+                                     evaluate_baseline, pipeline,
+                                     train_baseline_vqvae)
+    from vqvae_tpu_torch.cli import build_codebook_legacy
     from vqvae_tpu_torch.config import Config
     from vqvae_tpu_torch.eval.lpips import lpips_distance
-    from vqvae_tpu_torch.models import Transformer
-    from vqvae_tpu_torch.train import TransformerEngine
+    from vqvae_tpu_torch.models import VQVAE, Transformer
+    from vqvae_tpu_torch.ops import edge_lengths_riemannian
+    from vqvae_tpu_torch.train import TransformerEngine, VQVAEEngine
+    from vqvae_tpu_torch.utils.checkpoint import load_baseline_checkpoint
     from vqvae_tpu_torch.ops import nearest_codes
     from vqvae_tpu_torch.ops.gather_min import gather_min
     from vqvae_tpu_torch.ops.ell import BucketedGraph
@@ -185,6 +195,22 @@ _IMPORT_CHECK = textwrap.dedent("""
             lambda: run_pipeline("configs/sandbox-fashion/geodesic"),
             lambda: pipeline.main(["--preset",
                                    "configs/sandbox-fashion/geodesic"]),
+            lambda: build_codebook_legacy_main(Config({"out_dir": "unused"})),
+            lambda: build_codebook_legacy.main([
+                "--config", "configs/sandbox-fashion/euclidean/codebook.yaml"]),
+            lambda: edge_lengths_riemannian(lambda v: v, z, z),
+            lambda: VQVAEEngine(VQVAE(z_channels=4, hidden=8)),
+            lambda: load_baseline_checkpoint("unused.pt", {}),
+            lambda: train_baseline_main(Config({})),
+            lambda: evaluate_baseline_main(Config({})),
+            lambda: eval_codebook_metrics_main(Config({})),
+            lambda: run_baseline_pipeline("configs/baseline_vqvae/"
+                                          "config.yaml"),
+            lambda: train_baseline_vqvae.main([]),
+            lambda: evaluate_baseline.main([]),
+            lambda: eval_codebook_metrics.main([]),
+            lambda: pipeline.main(["--baseline",
+                                   "configs/baseline_vqvae/config.yaml"]),
         ]
         for call in calls:
             try:
@@ -202,6 +228,6 @@ def test_port_imports_no_jax_and_needs_a_device_without_cuda():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.split()
-    assert int(lines[0]) >= 47  # every module of every slice was imported
+    assert int(lines[0]) >= 53  # every module of every slice was imported
     if not torch.cuda.is_available():
         assert lines[-1] == "raised"

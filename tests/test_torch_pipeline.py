@@ -7,8 +7,13 @@
 - the CLI's ``--skip-*`` flags (and the reference's ``--skip-generation``
   / ``--skip-evaluation`` names) on the same artifacts;
 - a non-critical stage's failure is printed and passed over, a critical
-  stage's is raised; a legacy codebook builder raises
-  ``NotImplementedError``.
+  stage's is raised; a config naming a legacy codebook builder, or a
+  reference-style config implying one, is dispatched to
+  ``build_codebook_legacy_main`` (the riemannian flag as named);
+- a vanilla preset (``configs/sandbox-fashion/euclidean``, the flat VAE)
+  through all six stages with the ``legacy_riemannian`` builder: flat
+  codes (N,) with -1 only off the LCC, both graph files, the transformer
+  on two-token sequences, the sample grid and finite PSNR / SSIM.
 """
 import json
 from pathlib import Path
@@ -126,18 +131,82 @@ def test_non_critical_failure_continues_and_critical_raises(tmp_path,
                      root_dir=tmp_path, device="cpu")
 
 
+class _Dispatched(Exception):
+    pass
+
+
 @pytest.mark.parametrize("codebook,builder", [
     ({"builder": "legacy"}, "legacy"),
     ({"builder": None, "riemannian": {"k": 5}}, "legacy_riemannian"),
     ({"builder": None, "model": {"K": 8}}, "legacy"),
 ])
-def test_legacy_codebook_builders_raise(tmp_path, codebook, builder):
-    with pytest.raises(NotImplementedError, match="queue item 10"):
+def test_legacy_codebook_builders_raise(tmp_path, codebook, builder,
+                                        monkeypatch):
+    # the legacy builder is reached (and stops the run with a sentinel)
+    from vqvae_tpu_torch import cli
+
+    calls = []
+
+    def fake(cfg, riemannian=False, device=None):
+        calls.append((riemannian, device))
+        raise _Dispatched
+
+    monkeypatch.setattr(cli, "build_codebook_legacy_main", fake)
+    monkeypatch.setattr(cli, "build_codebook_main", None)  # not reached
+    with pytest.raises(_Dispatched):
         run_pipeline(PRESET, skip={"vae"}, overrides={"codebook": codebook},
                      root_dir=tmp_path, device="cpu")
+    assert calls == [(builder == "legacy_riemannian", torch.device("cpu"))]
     cfg = pipeline._stage_config(PRESET, "codebook",
                                  {"codebook": codebook})
     assert pipeline.codebook_builder(cfg) == builder
+
+
+VANILLA = REPO / "configs" / "sandbox-fashion" / "euclidean"
+VANILLA_EXP = Path("experiments") / "sandbox-fashion" / "euclidean"
+
+
+def test_vanilla_preset_runs_all_six_stages(tmp_path, monkeypatch):
+    monkeypatch.setenv("VQVAE_TPU_SYNTH_SIZE", "256")
+    monkeypatch.delenv("LPIPS_WEIGHTS", raising=False)
+    overrides = {
+        "vae": {"max_epochs": 1, "data": {"synthetic_size": 256}},
+        "codebook": {"builder": "legacy_riemannian",
+                     "riemannian": {"mode": "subset", "max_edges": 200,
+                                    "batch_size": 128}},
+        "quality": {"synthetic_size": 64},
+        "transformer": {"training": {"epochs": 1}},
+        "evaluate": {"data": {"synthetic_size": 64}}}
+    timings = run_pipeline(VANILLA, overrides=overrides, root_dir=tmp_path,
+                           device="cpu")
+    assert list(timings) == list(STAGES) + ["total"]
+    exp = tmp_path / VANILLA_EXP
+    for path in (exp / "vae" / "checkpoints" / "best.pt",
+                 exp / "codebook" / "knn_graph.npz",
+                 exp / "codebook" / "knn_graph_riemannian.npz",
+                 exp / "codebook" / "codebook.npz",
+                 exp / "evaluation" / "quantization_analysis.json",
+                 exp / "evaluation" / "codebook_health.json",
+                 exp / "transformer" / "checkpoints" / "best.pt",
+                 exp / "evaluation" / "metrics.yaml"):
+        assert path.exists(), path
+    codes = np.load(exp / "codebook" / "codes.npy")
+    rec = json.loads(bytes(np.load(exp / "codebook" / "codebook.npz")
+                           ["config_json"]))
+    assert codes.shape == (256,) and codes.max() < 128
+    assert int((codes >= 0).sum()) == rec["lcc_nodes"]
+    assert rec["riemannian"] is True and np.isfinite(
+        rec["quantization_error"])
+    rows = [json.loads(line) for line in (exp / "transformer"
+                                          / "metrics.jsonl").read_text()
+            .splitlines()]
+    assert len(rows) == 1 and np.isfinite(rows[0]["train_loss"])
+    grid = load_image(exp / "evaluation" / "generated_samples.png")
+    assert grid.shape == (10 * 30 + 2, 4 * 30 + 2, 1)
+    metrics = yaml.safe_load((exp / "evaluation" / "metrics.yaml")
+                             .read_text())
+    assert np.isfinite(metrics["PSNR_full"])
+    assert np.isfinite(metrics["SSIM_full"])
 
 
 def test_missing_preset_raises(tmp_path):

@@ -13,12 +13,19 @@ on, so a caller that needs their outputs checks the files. Per-stage wall
 seconds are returned and, when ``VQVAE_TPU_TIMINGS_PATH`` is set, written
 there as JSON.
 
-Only the spatial codebook builder is ported; a config naming a legacy
-builder (or a reference-style config that implies one) raises
-``NotImplementedError``.
+The codebook stage dispatches on the config's ``builder``: ``spatial``
+(``build_codebook.py``), or ``legacy`` / ``legacy_riemannian``
+(``build_codebook_legacy.py``, the vanilla presets' flat latents); a
+reference-style config without the key implies one (``codebook_builder``).
+
+``run_baseline_pipeline`` runs the end-to-end EMA VQ-VAE baseline: train,
+then evaluate, in process (``scripts/run_baseline_pipeline.py`` runs the
+two scripts as subprocesses).
 
 Run: ``python -m vqvae_tpu_torch.cli.pipeline --preset <dir> [--skip-vae
-...] [--timings-out <json>] [--device cpu]``.
+...] [--timings-out <json>] [--device cpu]``, or for the baseline
+``python -m vqvae_tpu_torch.cli.pipeline --baseline <config.yaml>
+[--skip-train] [--epochs N] [--device cpu]``.
 """
 from __future__ import annotations
 
@@ -57,20 +64,20 @@ def codebook_builder(cfg: Config) -> str:
 
 
 def _run_stage(stage: str, cfg: Config, device) -> None:
-    from . import (build_codebook_main, evaluate_model_main,
-                   generate_samples_main, run_quality_stage,
-                   train_transformer_main, train_vae_main)
+    from . import (build_codebook_legacy_main, build_codebook_main,
+                   evaluate_model_main, generate_samples_main,
+                   run_quality_stage, train_transformer_main, train_vae_main)
 
     if stage == "vae":
         train_vae_main(cfg, device=device)
     elif stage == "codebook":
         builder = codebook_builder(cfg)
-        if builder != "spatial":
-            raise NotImplementedError(
-                f"codebook builder {builder!r} is not ported (ROADMAP.md "
-                f"queue item 10: the legacy and vanilla codebooks); only "
-                f"'spatial' runs")
-        build_codebook_main(cfg, device=device)
+        if builder == "spatial":
+            build_codebook_main(cfg, device=device)
+        else:
+            build_codebook_legacy_main(
+                cfg, riemannian=(builder == "legacy_riemannian"),
+                device=device)
     elif stage == "quality":
         rc = run_quality_stage(str(cfg["experiment"]),
                                dataset=str(cfg.get("dataset",
@@ -146,12 +153,50 @@ def run_pipeline(
     return timings
 
 
+def run_baseline_pipeline(config: str | Path, skip_train: bool = False,
+                          epochs: Optional[int] = None,
+                          device=None) -> Dict[str, float]:
+    """The EMA VQ-VAE baseline from its config file: train (``epochs``
+    overrides ``train.epochs``), then evaluate, in process, on ``device``
+    (default the GPU; raises when CUDA is absent and no device is given).
+    Returns wall seconds by step and ``total``."""
+    from .evaluate_baseline import evaluate_baseline_main
+    from .train_baseline_vqvae import train_baseline_main
+
+    dev = resolve_device(device)
+    overrides = {"train": {"epochs": epochs}} if epochs is not None else None
+    cfg = load_config(config, overrides=overrides)
+    timings: Dict[str, float] = {}
+    t_total = time.perf_counter()
+    if not skip_train:
+        t0 = time.perf_counter()
+        train_baseline_main(cfg, device=dev)
+        timings["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evaluate_baseline_main(cfg, device=dev)
+    timings["evaluate"] = time.perf_counter() - t0
+    timings["total"] = time.perf_counter() - t_total
+    print(f"[baseline] TOTAL: {timings['total']:.1f}s "
+          f"({ {k: round(v, 1) for k, v in timings.items()} })")
+    return timings
+
+
 def main(argv=None) -> Dict[str, float]:
     parser = argparse.ArgumentParser(
-        description="Run the pipeline's stages (PyTorch port).")
-    parser.add_argument("--preset", required=True,
-                        help="configs/<dataset>/<variant>/<distance> "
-                             "directory")
+        description="Run the pipeline's stages, or the EMA VQ-VAE "
+                    "baseline (PyTorch port).")
+    which = parser.add_mutually_exclusive_group(required=True)
+    which.add_argument("--preset",
+                       help="configs/<dataset>/<variant>/<distance> "
+                            "directory")
+    which.add_argument("--baseline", metavar="CONFIG",
+                       help="the baseline's config (e.g. configs/"
+                            "baseline_vqvae/config.yaml): train, then "
+                            "evaluate")
+    parser.add_argument("--skip-train", action="store_true",
+                        help="baseline: evaluate the existing checkpoint")
+    parser.add_argument("--epochs", type=int, default=None,
+                        help="baseline: override train.epochs")
     for stage in STAGES:
         parser.add_argument(f"--skip-{stage}", action="store_true")
     # the reference's flag names
@@ -164,8 +209,14 @@ def main(argv=None) -> Dict[str, float]:
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda)")
     args = parser.parse_args(argv)
-    skip = {s for s in STAGES if getattr(args, f"skip_{s}")}
-    timings = run_pipeline(args.preset, skip=skip, device=args.device)
+    if args.baseline:
+        timings = run_baseline_pipeline(args.baseline,
+                                        skip_train=args.skip_train,
+                                        epochs=args.epochs,
+                                        device=args.device)
+    else:
+        skip = {s for s in STAGES if getattr(args, f"skip_{s}")}
+        timings = run_pipeline(args.preset, skip=skip, device=args.device)
     if args.timings_out:
         with open(args.timings_out, "w") as f:
             json.dump(timings, f, indent=2)

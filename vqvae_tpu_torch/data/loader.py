@@ -110,6 +110,26 @@ class DataLoader:
         return self.epoch(0)
 
 
+def get_split_loader(
+    name: str,
+    train: bool,
+    root: str = "data",
+    batch_size: int = 128,
+    augment: bool = False,
+    seed: int = 0,
+    synthetic_size: Optional[int] = None,
+) -> DataLoader:
+    """One of ``get_data_loaders``' two loaders, without building the other
+    split (the train split shuffles and may augment; the val split's
+    synthetic stand-in has ``max(synthetic_size // 6, 32)`` images)."""
+    if not train and synthetic_size is not None:
+        synthetic_size = max(synthetic_size // 6, 32)
+    split = load_dataset(name, root, train=train,
+                         synthetic_size=synthetic_size, seed=seed)
+    return DataLoader(split, batch_size, shuffle=train,
+                      augment=augment and train, seed=seed)
+
+
 def get_data_loaders(
     name: str,
     root: str = "data",
@@ -123,11 +143,6 @@ def get_data_loaders(
     (reference src/data/factory.py:99-147). Extra torch-specific kwargs
     (num_workers, pin_memory, persistent_workers) are accepted and ignored.
     """
-    val_size = None
-    if synthetic_size is not None:
-        val_size = max(synthetic_size // 6, 32)
-    train_split = load_dataset(name, root, train=True, synthetic_size=synthetic_size, seed=seed)
-    val_split = load_dataset(name, root, train=False, synthetic_size=val_size, seed=seed)
-    train_loader = DataLoader(train_split, batch_size, shuffle=True, augment=augment, seed=seed)
-    val_loader = DataLoader(val_split, batch_size, shuffle=False, augment=False, seed=seed)
-    return train_loader, val_loader
+    return tuple(get_split_loader(name, train, root, batch_size, augment,
+                                  seed, synthetic_size)
+                 for train in (True, False))

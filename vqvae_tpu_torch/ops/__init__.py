@@ -7,7 +7,8 @@ from .kmedoids import (assign_points_to_medoids, compute_quantization_error,
                        kpp_parallel_initialization)
 from .knn import knn_search
 from .knn_select import fused_select, fused_select_reference
-from .riemannian import (build_mlp_decode_fn, edge_lengths_riemannian_auto,
+from .riemannian import (build_mlp_decode_fn, edge_lengths_riemannian,
+                         edge_lengths_riemannian_auto,
                          edge_lengths_riemannian_indexed,
                          make_decoder_image_fn)
 
@@ -29,6 +30,7 @@ __all__ = [
     "fused_select",
     "fused_select_reference",
     "build_mlp_decode_fn",
+    "edge_lengths_riemannian",
     "edge_lengths_riemannian_auto",
     "edge_lengths_riemannian_indexed",
     "make_decoder_image_fn",

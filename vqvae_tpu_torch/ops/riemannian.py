@@ -16,6 +16,9 @@ latent table and evaluating both endpoint JVPs in one decoder pass:
   probe (``_verify_affine_segments``) — when it fails, ``auto`` takes the
   conv engine, as the JAX package does.
 - ``edgewise``: the JVP of the conv decoder itself.
+
+``edge_lengths_riemannian`` takes preformed endpoint arrays instead (the
+legacy flat-latent codebook's call), through the same fused JVP.
 """
 from __future__ import annotations
 
@@ -186,6 +189,25 @@ def edge_lengths_riemannian_indexed(decode_fn: Callable, z, rows: np.ndarray,
             r, c = r_t[s:s + batch_size], c_t[s:s + batch_size]
             out[s:s + batch_size] = _chunk_norms(decode_fn, z_t[r], z_t[c])
     return out.cpu().numpy()
+
+
+def edge_lengths_riemannian(decode_fn: Callable, z_start, z_end,
+                            batch_size: int = 512,
+                            device=None) -> np.ndarray:
+    """Riemannian lengths of E edges given by their endpoints, flat (E, D)
+    or spatial (E, H, W, C); returns (E,) float32. ``batch_size`` edges go
+    through one decoder linearization (both endpoints at once). The JAX
+    package pads the last chunk with zero latents; in eval mode that
+    padding changes no valid row, so the last chunk here is just shorter.
+    ``device`` defaults to ``decode_fn.device``."""
+    z_start = np.asarray(z_start, np.float32)
+    z_end = np.asarray(z_end, np.float32)
+    if z_start.shape != z_end.shape:
+        raise ValueError("Start and end points must have same shape")
+    e = np.arange(z_start.shape[0])
+    return edge_lengths_riemannian_indexed(
+        decode_fn, np.concatenate([z_start, z_end]), e, e + len(e),
+        batch_size=batch_size, device=device)
 
 
 def edge_lengths_riemannian_auto(decode_fn: Callable, z: np.ndarray,

@@ -20,6 +20,13 @@ weights without the optimizer, as the JAX engine writes it.
 ``transformer_state_dict_from_jax`` carries flax's transformer params
 across.
 
+The baseline EMA VQ-VAE's checkpoints are ``.pt`` files too:
+``<out_dir>/checkpoints/best.pt`` (the best validation loss so far) and
+``latest.pt`` hold ``{'model', 'optimizer', 'codebook', 'epoch'}``
+(``save_baseline_checkpoint`` / ``load_baseline_checkpoint``);
+``vqvae_state_dict_from_jax`` and ``codebook_state_from_jax`` carry the
+JAX model's params and codebook across.
+
 ``vae_state_dict_from_jax`` is the port's own copy of that mapping
 (``vqvae_tpu/utils/torch_compat.py:160-251``), from the JAX ``variables``
 as nested dicts of numpy arrays: HWIO -> OIHW for convs, HWIO -> IOHW with
@@ -169,6 +176,84 @@ def transformer_state_dict_from_jax(params: Mapping
                 blk[dense]["kernel"]).T)
             sd[f"{pre}.{name}.bias"] = _t(blk[dense]["bias"])
     return sd
+
+
+def vqvae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.vqvae_baseline.VQVAE`` from flax's
+    ``params`` (nested dicts of numpy arrays, ``{"enc": ..., "dec": ...}``):
+    conv kernels HWIO -> OIHW, transposed-conv kernels HWIO -> IOHW with
+    the spatial flip. The map is linear, so it carries gradients too."""
+    params = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(tkey: str, layer: Mapping, transposed: bool = False):
+        sd[f"{tkey}.weight"] = (_conv_t if transposed else _conv)(
+            layer["kernel"])
+        sd[f"{tkey}.bias"] = _t(layer["bias"])
+
+    def put_res(side: str, tree: Mapping):
+        n_res = sum(1 for k in tree if k.startswith("ResBlock_"))
+        for i in range(n_res):
+            for j in range(2):
+                put(f"{side}.res.{i}.conv_{j}", tree[f"ResBlock_{i}"][f"Conv_{j}"])
+
+    enc, dec = params["enc"], params["dec"]
+    for j in range(4):
+        put(f"enc.conv_{j}", enc[f"Conv_{j}"])
+    put_res("enc", enc)
+    for j in range(2):
+        put(f"dec.conv_{j}", dec[f"Conv_{j}"])
+        put(f"dec.convt_{j}", dec[f"ConvTranspose_{j}"], transposed=True)
+    put_res("dec", dec)
+    return sd
+
+
+def codebook_state_from_jax(mapping: Mapping):
+    """``CodebookState`` from JAX's (a ``CodebookState`` or its
+    ``_asdict()``: embed, cluster_size, embed_avg)."""
+    from ..models.vqvae_baseline import CodebookState
+
+    if hasattr(mapping, "_asdict"):
+        mapping = mapping._asdict()
+    return CodebookState(**{k: _t(mapping[k]) for k in
+                            ("embed", "cluster_size", "embed_avg")})
+
+
+def save_baseline_checkpoint(path: str | Path, model: torch.nn.Module,
+                             optimizer, codebook, epoch: int) -> Path:
+    """A baseline VQ-VAE checkpoint ``{'model', 'optimizer', 'codebook',
+    'epoch'}`` (``optimizer`` a ``train.state.Optimizer`` or None), on the
+    CPU, written atomically."""
+    return save_checkpoint(path, {
+        "model": cpu_state_dict(model),
+        "optimizer": (optimizer.state_dict() if optimizer is not None
+                      else None),
+        "codebook": {k: v.detach().to("cpu", copy=True)
+                     for k, v in codebook.as_dict().items()},
+        "epoch": int(epoch)})
+
+
+def load_baseline_checkpoint(path: str | Path, model_config: Mapping,
+                             device=None):
+    """(``VQVAE`` in eval mode, ``CodebookState``) from a baseline
+    checkpoint; ``model_config`` holds the config's ``model``
+    keys (in_channels, z_channels, hidden, n_res_blocks). ``path`` may be
+    a directory (``best.pt`` in it) or name ``.../best``."""
+    from ..models.vqvae_baseline import CodebookState, VQVAE
+
+    dev = resolve_device(device)
+    path = Path(path)
+    if path.is_dir():
+        path = path / "best.pt"
+    raw = read_checkpoint(path)
+    model = VQVAE(in_channels=int(model_config.get("in_channels", 3)),
+                  z_channels=int(model_config.get("z_channels", 128)),
+                  hidden=int(model_config.get("hidden", 256)),
+                  n_res_blocks=int(model_config.get("n_res_blocks", 2)))
+    model.load_state_dict(raw["model"])
+    cb = CodebookState(**{k: raw["codebook"][k].to(dev) for k in
+                          ("embed", "cluster_size", "embed_avg")})
+    return model.to(dev).eval(), cb
 
 
 def build_vae(config: Mapping[str, Any]) -> VAE:
