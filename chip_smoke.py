@@ -135,6 +135,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1568,6 +1569,486 @@ def phase_baseline_step_reference(seed: int = 42):
             "near_ties": n_ties}
 
 
+# -- phases 13-15: the VAE epoch path, bf16, the codebook engines ----------
+
+EPOCH_IMAGES = 600       # 3 batches of 256 padded to 768: padding rows fall
+                         # in every batch the permutation sends them to
+# one bf16 step against the CPU: the bf16 limits of tests/test_torch_bf16.py
+# (3x the largest gap port vs flax over five seeds); the f32 step is the
+# control and must sit 10x under them
+VAE_BF16_LIMITS = {"loss": 3.6e-4, "grad": 3.7e-1, "grad_out_bias": 7.8e-1}
+TF_BF16_LIMITS = {"loss": 6.3e-5, "grad": 9.4e-2}
+ENGINE_SOURCES = 512     # sources of the shortest-path engines' comparison
+HATCH_ROWS = 16_384      # rows of the kNN escape hatch's check (host kNN)
+
+
+def _pre_norm_biases(model):
+    from vqvae_tpu_torch.models import BatchNorm
+
+    out = set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            parent, i = name.rsplit(".", 1)
+            out.add(f"{parent}.{int(i) - 1}.bias")
+    return out
+
+
+def phase_vae_epoch(seed: int = 42):
+    """One epoch of the VAE's device-resident path at the preset's full
+    width on the card against the CPU (same permutation and noise); then
+    with a NaN pixel in a middle batch; then one 60,000-image epoch of the
+    epoch path against the per-batch path."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.data import get_data_loaders, load_dataset
+    from vqvae_tpu_torch.device import resolve_device
+    from vqvae_tpu_torch.models import VAE, flax_init_
+    from vqvae_tpu_torch.train import VAEEngine
+    from vqvae_tpu_torch.train.vae_engine import seeded_generator
+
+    cfg = load_config(ROOT / PRESET / "vae.yaml")
+    arch = dict(cfg["model"])
+    arch.pop("beta")
+    bs, lr = int(cfg["data"]["batch_size"]), float(cfg["lr"])
+    model = flax_init_(VAE(**arch), seeded_generator("cpu", seed))
+    pre_norm = _pre_norm_biases(model)
+    split = load_dataset("fashionmnist", root="no-such-dir", train=True,
+                         synthetic_size=EPOCH_IMAGES, seed=seed)
+    n_steps = -(-EPOCH_IMAGES // bs)
+    perm = torch.randperm(n_steps * bs,
+                          generator=torch.Generator().manual_seed(seed))
+    middle = perm[bs:2 * bs]
+    if not (middle >= EPOCH_IMAGES).any():
+        fail("phase 13: the permutation put no padding row in the middle "
+             "batch")
+
+    def engine(dev):
+        return VAEEngine(copy.deepcopy(model), lr=lr,
+                         weight_decay=float(cfg["weight_decay"]),
+                         grad_clip_max_norm=float(cfg["grad_clip_max_norm"]),
+                         cosine_t_max=int(cfg["max_epochs"]),
+                         steps_per_epoch=n_steps, seed=seed, device=dev)
+
+    def epoch(dev, images, tf32=False, state=None):
+        """(epoch means, eval sums, parameters, state dict); with ``state``
+        only the evaluation runs, from those weights."""
+        eng = engine(dev)
+        loader = SimpleNamespace(split=SimpleNamespace(images=images))
+        data, mask, steps, _ = eng.device_dataset(loader, bs)
+        if tf32:  # the control: the engine has set full f32; undo it
+            set_tf32()
+        try:  # the same noise on both devices: a CPU generator
+            tr = torch.zeros(3)
+            if state is None:
+                tr = eng.train_epoch(data, mask, perm.to(dev), 1.0, steps,
+                                     bs, seeded_generator("cpu", seed, 1))
+            else:
+                eng.model.load_state_dict(state)
+            va = eng.eval_epoch(data, mask, 1.0, steps, bs,
+                                seeded_generator("cpu", seed, 2))
+        finally:
+            resolve_device(dev)
+        return (tr.cpu().numpy(), va.cpu().numpy(),
+                {k: p.detach().cpu() for k, p in
+                 eng.model.named_parameters()},
+                {k: v.detach().cpu() for k, v in
+                 eng.model.state_dict().items()})
+
+    def compare(label, got, ref, check_metrics=True):
+        """The epoch check: its mean (loss, recon, kl) within rtol 1e-5
+        (unless ``check_metrics`` is off) and every parameter finite and
+        within one Adam step a step (2 lr) of the CPU's. Phase 7's other
+        rule, 99 % of the parameters within rtol 1e-4, holds for one step
+        only (Adam's first step is lr * sign(g)); later steps divide the
+        gradients' rounding residue by sqrt(v), so the share is logged."""
+        tr_g, va_g, par_g, _ = got
+        tr_c, va_c, par_c, _ = ref
+        loss_gap = float(np.abs(tr_g - tr_c).max() / np.abs(tr_c).max())
+        n_par = n_close = 0
+        worst_lr = 0.0
+        for key, p_c in par_c.items():
+            if key in pre_norm:
+                continue
+            if not torch.isfinite(par_g[key]).all():
+                fail(f"{label}: non-finite parameters in {key}")
+            dp = (par_g[key] - p_c).abs()
+            worst_lr = max(worst_lr, float(dp.max()) / lr)
+            n_close += int((dp <= 1e-4 * p_c.abs() + 1e-7).sum())
+            n_par += p_c.numel()
+        ok = (worst_lr <= 2.0 * n_steps
+              and (not check_metrics or loss_gap <= 1e-5))
+        log(f"{label}: epoch (loss, recon, kl) gap {loss_gap:.3e} relative;"
+            f" {n_close} of {n_par} parameters within rtol 1e-4, largest "
+            f"move apart {worst_lr:.3f} lr ({n_steps} steps); eval sums card "
+            f"{va_g.tolist()} CPU {va_c.tolist()}")
+        return ok
+
+    images = split.images
+    cpu = epoch("cpu", images)
+    card = epoch("cuda", images)
+    tf32 = epoch("cuda", images, tf32=True)
+    if compare("phase 13 TF32 control", tf32, cpu):
+        fail("phase 13: the TF32 control passes the epoch check")
+    if not compare("phase 13 epoch card vs CPU", card, cpu):
+        fail("phase 13: the card's epoch differs from the CPU's")
+    # evaluation from the CPU's post-epoch state on both devices: from
+    # each device's own state the pre-norm conv biases, whose steps are
+    # Adam's sign of rounding residue, shift eval-mode outputs (1e-4)
+    same = epoch("cuda", images, state=cpu[3])[1]
+    log(f"phase 13: eval sums from the CPU's state, card {same.tolist()}")
+    if not np.allclose(same, cpu[1], rtol=1e-5):
+        fail(f"phase 13: eval sums {same} (card) vs {cpu[1]} (CPU) from "
+             f"one state")
+
+    bad = images.copy()
+    row = int(middle[middle < EPOCH_IMAGES][0])
+    bad[row, 3, 5, 0] = np.nan
+    cpu_nan = epoch("cpu", bad)
+    card_nan = epoch("cuda", bad)
+    if np.isfinite(cpu_nan[0][0]) or np.isfinite(card_nan[0][0]):
+        fail("phase 13: the NaN batch left the epoch loss finite")
+    # the loss mean carries the NaN step; parameters must not
+    if not compare("phase 13 NaN batch card vs CPU", card_nan, cpu_nan,
+                   check_metrics=False):
+        fail("phase 13: after a NaN batch the card's parameters differ "
+             "from the CPU's")
+
+    # one 60,000-image epoch: the epoch path against the per-batch path
+    tr_loader, _ = get_data_loaders("fashionmnist", root="no-such-dir",
+                                    batch_size=bs, seed=seed)
+    eng = engine("cuda")
+    data, mask, steps, n_pad = eng.device_dataset(tr_loader, bs)
+    gen = seeded_generator("cuda", seed, 3)
+    eng.train_epoch(data, mask, torch.randperm(n_pad, device="cuda",
+                                               generator=gen),
+                    1.0, 4, bs, gen)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.train_epoch(data, mask, torch.randperm(
+        n_pad, device="cuda", generator=gen), 1.0, steps, bs, gen)
+    float(out[0])
+    t_epoch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.run_epoch(tr_loader, True, 1, 1.0)
+    t_batch = time.perf_counter() - t0
+    log(f"phase 13: one {steps}-step epoch of 60,000 images: epoch path "
+        f"{t_epoch:.3f}s ({steps / t_epoch:.2f} steps/s), per-batch path "
+        f"{t_batch:.3f}s ({steps / t_batch:.2f} steps/s)")
+    return {"epoch_s": t_epoch, "per_batch_s": t_batch, "steps": steps}
+
+
+def phase_bf16(work: Path, exp: Path, f32_rates: dict, seed: int = 42):
+    """``model.dtype: bfloat16``: the preset's train_vae and
+    train_transformer for one epoch each (the transformer on phase 6's
+    codes), then one bf16 step of each on the card against the CPU, with
+    the f32 step as the control."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from vqvae_tpu_torch.cli import train_transformer_main, train_vae_main
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.data import load_dataset
+    from vqvae_tpu_torch.models import VAE, flax_init_
+    from vqvae_tpu_torch.models.transformer import (Transformer,
+                                                    transformer_init_)
+    from vqvae_tpu_torch.train import TransformerEngine, VAEEngine
+    from vqvae_tpu_torch.train.vae_engine import seeded_generator
+
+    vae_cfg = load_config(ROOT / PRESET / "vae.yaml", {
+        "max_epochs": 1, "out_dir": str(work / "vae"),
+        "data": {"root": str(work / "no-data")},
+        "model": {"dtype": "bfloat16"}})
+    vae_out = train_vae_main(vae_cfg, device="cuda")
+    rows = [_json.loads(line) for line in
+            (vae_out / "metrics.jsonl").read_text().splitlines()]
+    if not (np.isfinite(rows[-1]["train_loss"])
+            and np.isfinite(rows[-1]["val_loss"])):
+        fail(f"bf16 VAE: losses {rows[-1]}")
+    vae_rate = rows[-1]["train_steps"] / rows[-1]["train_seconds"]
+    cut = str(work.parent / "pipeline" / f"latents_train_{CODEBOOK_IMAGES}")
+    # (phase 6's cut of the training latents: the codes' labels)
+    tf_cfg = load_config(ROOT / PRESET / "transformer.yaml", {
+        "data": {"codes_path": str(exp / "codebook" / "codes.npy"),
+                 "labels_path": cut},
+        "training": {"epochs": 1}, "out": {"dir": str(work / "tf")},
+        "model": {"dtype": "bfloat16"}})
+    tf_out = train_transformer_main(tf_cfg, device="cuda")
+    tf_rows = [_json.loads(line) for line in
+               (tf_out / "metrics.jsonl").read_text().splitlines()]
+    if not (np.isfinite(tf_rows[-1]["train_loss"])
+            and np.isfinite(tf_rows[-1]["val_loss"])):
+        fail(f"bf16 transformer: losses {tf_rows[-1]}")
+    tf_rate = tf_rows[-1]["train_steps"] / tf_rows[-1]["train_seconds"]
+    log(f"bf16: vae 1 epoch {rows[-1]['train_steps']} steps, "
+        f"{vae_rate:.2f} steps/s (f32 in phase 6: "
+        f"{', '.join(f'{r:.2f}' for r in f32_rates['vae'])}), train loss "
+        f"{rows[-1]['train_loss']:.4f}, val loss {rows[-1]['val_loss']:.4f}; "
+        f"transformer 1 epoch {tf_rows[-1]['train_steps']} steps, "
+        f"{tf_rate:.2f} steps/s (f32 in phase 6: "
+        f"{', '.join(f'{r:.2f}' for r in f32_rates['transformer'])}), "
+        f"loss {tf_rows[-1]['train_loss']:.4f}")
+
+    # one step of each model, card against CPU, bf16 and f32
+    cfg = load_config(ROOT / PRESET / "vae.yaml")
+    arch = dict(cfg["model"])
+    arch.pop("beta")
+    base = flax_init_(VAE(**arch), seeded_generator("cpu", seed))
+    pre_norm = _pre_norm_biases(base)
+    out_bias = "decoder.deconv_layers.6.bias"
+    split = load_dataset("fashionmnist", root="no-such-dir", train=True,
+                         synthetic_size=256, seed=seed)
+    images = torch.from_numpy(split.images)
+    mask = torch.ones(images.shape[0])
+    mask[-16:], images[-16:] = 0.0, 0.0
+
+    def vae_step(dev, dtype):
+        m = VAE(**arch, dtype=dtype)
+        m.load_state_dict(base.state_dict())
+        eng = VAEEngine(m, lr=float(cfg["lr"]), seed=seed, device=dev)
+        out = eng.train_step(images.to(dev), mask.to(dev), 1.0,
+                             seeded_generator("cpu", seed, 1))
+        return float(out["loss"]), {k: p.grad.detach().float().cpu()
+                                    for k, p in m.named_parameters()}
+
+    tcfg = load_config(ROOT / PRESET / "transformer.yaml")
+    tarch = {**dict(tcfg["model"]), "dropout": 0.0}
+    tbase = transformer_init_(Transformer(**tarch),
+                              seeded_generator("cpu", seed))
+    tbs, seq = int(tcfg["data"]["batch_size"]), tarch["max_seq_len"]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, tarch["num_tokens"], (tbs, seq - 1), generator=g)
+    t = torch.randint(0, tarch["num_tokens"], (tbs, seq - 1), generator=g)
+    lab = torch.randint(0, tarch["num_classes"], (tbs,), generator=g)
+    tmask = torch.ones(tbs)
+    tmask[-16:] = 0.0
+
+    def tf_step(dev, dtype):
+        m = Transformer(**tarch, dtype=dtype)
+        m.load_state_dict(tbase.state_dict())
+        eng = TransformerEngine(m, lr=3e-4, label_smoothing=0.1, seed=seed,
+                                device=dev)
+        loss = eng.train_step(x.to(dev), t.to(dev), lab.to(dev),
+                              tmask.to(dev), None)
+        return float(loss), {k: p.grad.detach().cpu()
+                             for k, p in m.named_parameters()}
+
+    def gaps(step, skip):
+        res = {}
+        for dtype in ("bfloat16", "float32"):
+            loss_g, grad_g = step("cuda", dtype)
+            loss_c, grad_c = step("cpu", dtype)
+            rel = {k: float((grad_g[k] - g_c).norm() / g_c.norm())
+                   for k, g_c in grad_c.items() if not skip(k)}
+            res[dtype] = {"loss": abs(loss_g - loss_c) / abs(loss_c),
+                          "grad": max(rel.values()),
+                          "worst": max(rel, key=rel.get), "rel": rel}
+        return res
+
+    vae = gaps(vae_step, lambda k: k in pre_norm)
+    tf = gaps(tf_step, lambda k: k.endswith("attn.key.bias"))
+    for name, res, limits in (("VAE", vae, VAE_BF16_LIMITS),
+                              ("transformer", tf, TF_BF16_LIMITS)):
+        for dtype, scale in (("bfloat16", 1.0), ("float32", 0.1)):
+            r = res[dtype]
+            grad = max(v for k, v in r["rel"].items() if k != out_bias)
+            log(f"bf16 step check, {name} {dtype} card vs CPU: loss "
+                f"{r['loss']:.3e} relative, largest gradient gap "
+                f"{r['grad']:.3e} of its norm ({r['worst']}); limits x "
+                f"{scale}: loss {limits['loss'] * scale:.3e}, gradient "
+                f"{limits['grad'] * scale:.3e}")
+            if r["loss"] > limits["loss"] * scale or \
+                    grad > limits["grad"] * scale:
+                fail(f"bf16 step check: {name} {dtype} card vs CPU outside "
+                     f"{scale} x the bf16 limit")
+            if out_bias in r["rel"] and r["rel"][out_bias] > \
+                    limits["grad_out_bias"] * scale:
+                fail(f"bf16 step check: {name} {dtype} output bias gradient "
+                     f"gap {r['rel'][out_bias]:.3e}")
+    return {"vae_steps_per_s": vae_rate, "tf_steps_per_s": tf_rate}
+
+
+def phase_engines(exp: Path, cut: Path, seed: int = 0):
+    """The codebook stage's other engines on phase 6's 65,536-node
+    geodesic graph (its LCC) and its latents ``cut``, card against card
+    and host."""
+    import numpy as np
+    import torch
+    from scipy import sparse
+
+    from vqvae_tpu_torch import native
+    from vqvae_tpu_torch.ops.connected import CC_STATS
+    from vqvae_tpu_torch.ops import (EdgeList, connected_components_device,
+                                     edge_lengths_riemannian_auto,
+                                     fit_kmedoids, geo_compat, knn_search,
+                                     largest_connected_component,
+                                     multi_source_shortest_paths)
+    from vqvae_tpu_torch.ops.ell import (ELL_STATS, BucketedGraph,
+                                         multi_source_shortest_paths_ell)
+    from vqvae_tpu_torch.ops.riemannian import make_decoder_image_fn
+    from vqvae_tpu_torch.utils.checkpoint import load_vae_from_checkpoint
+    from vqvae_tpu_torch.utils.latents import load_latents
+
+    W = sparse.load_npz(exp / "codebook" / "knn_graph_geodesic.npz").tocsr()
+    n_all = W.shape[0]
+    t0 = time.perf_counter()
+    labels = connected_components_device(W, device="cuda")
+    t_cc = time.perf_counter() - t0
+    mask = largest_connected_component(W)
+    sizes = np.bincount(labels)
+    if not np.array_equal(labels == np.argmax(sizes), mask):
+        fail("connected_components_device: the LCC differs from the host's")
+    Wl = W[mask][:, mask].tocsr()
+    n = Wl.shape[0]
+    rng = np.random.default_rng(seed)
+    src = np.sort(rng.choice(n, ENGINE_SOURCES, replace=False))
+    timings = {"components": t_cc}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    el = EdgeList.from_csr(Wl, device="cuda")
+    (d_bf, it_bf), timings["bellman_ford"] = timed(
+        lambda: multi_source_shortest_paths(el, src, return_iters=True))
+    g = BucketedGraph.from_csr(Wl, device="cuda")
+    (d_ell, it_ell), timings["ell"] = timed(
+        lambda: multi_source_shortest_paths_ell(g, src, return_iters=True))
+    rec_off = ELL_STATS[-1]
+    (d_act, it_act), timings["ell_active"] = timed(
+        lambda: multi_source_shortest_paths_ell(g, src, active=True,
+                                                return_iters=True))
+    rec_act = ELL_STATS[-1]
+    t0 = time.perf_counter()
+    d_host = native.dijkstra_multi_source(Wl, src.astype(np.int32)).T
+    timings["host_dijkstra"] = time.perf_counter() - t0
+    d_bf, d_ell, d_act = (d.cpu().numpy() for d in (d_bf, d_ell, d_act))
+    for name, d in (("edge-list Bellman-Ford", d_bf), ("ELL active", d_act),
+                    ("host Dijkstra", d_host)):
+        if not np.array_equal(d, d_ell):
+            fail(f"{name} distances differ from the ELL engine's")
+    if it_act != it_ell:
+        fail(f"ELL active: {it_act} sweeps, {it_ell} without")
+    e_dir, k = int(el.src.shape[0]), ENGINE_SOURCES
+    cc = CC_STATS[-1]
+    # bytes a sweep moves: Bellman-Ford reads src, dst (8 B each) and w
+    # (4 B) per edge, gathers d[src] (4K B), writes and re-reads the
+    # contributions (8K B) for the scatter-min, and clones and compares d
+    # (12 N K B); label propagation gathers and scatters 8-byte labels by
+    # 8-byte indices over both directions (32 B an edge) plus ~6 N-long
+    # passes of 8 B (the minimum, two jumps, the compare)
+    bf_bytes = it_bf * (e_dir * (20 + 12 * k) + 12 * n * k)
+    cc_bytes = cc["sweeps"] * (cc["edges"] * 32 + cc["nodes"] * 48)
+    log(f"engines on the {n}-node LCC of {n_all} ({Wl.nnz} stored edges, "
+        f"{k} sources): identical distances; Bellman-Ford "
+        f"{timings['bellman_ford']:.3f}s in {it_bf} sweeps over {e_dir} "
+        f"padded directed edges ({bf_bytes / 1e9:.2f} GB); "
+        f"ELL {timings['ell']:.3f}s in {it_ell} "
+        f"sweeps ({rec_off['bytes'] / 1e9:.2f} GB); ELL active "
+        f"{timings['ell_active']:.3f}s, {it_act} sweeps, active_frac "
+        f"{rec_act['active_frac']:.4f} ({rec_act['chunk_relaxed']} of "
+        f"{rec_act['chunk_visits']} chunks, {rec_act['bytes'] / 1e9:.2f} "
+        f"GB); host Dijkstra {timings['host_dijkstra']:.3f}s; device "
+        f"components {t_cc:.3f}s in {cc['sweeps']} sweeps "
+        f"({cc_bytes / 1e9:.3f} GB; labels equal the host's LCC)")
+
+    t0 = time.perf_counter()
+    m_el, a_el, q_el = fit_kmedoids(el, K=512, init="kpp_parallel", seed=42)
+    timings["kmedoids_edge_list"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_csr, a_csr, q_csr = fit_kmedoids(Wl, K=512, init="kpp_parallel",
+                                       seed=42, backend="device",
+                                       reorder=False, device="cuda")
+    timings["kmedoids_csr"] = time.perf_counter() - t0
+    if not (np.array_equal(m_el, m_csr) and np.array_equal(a_el, a_csr)
+            and q_el == q_csr):
+        fail(f"fit_kmedoids: the EdgeList run differs from the CSR run "
+             f"(QE {q_el} vs {q_csr})")
+    log(f"fit_kmedoids K=512 kpp_parallel: EdgeList "
+        f"{timings['kmedoids_edge_list']:.3f}s, CSR (ELL) "
+        f"{timings['kmedoids_csr']:.3f}s; identical medoids, assignments "
+        f"and QE {q_el}")
+
+    # 100 predecessor paths re-summed to their distances
+    d_p, pred = geo_compat.dijkstra_multi_source(Wl, src[:1],
+                                                 return_predecessors=True)
+    targets = rng.choice(np.nonzero(np.isfinite(d_p[0]))[0], 100,
+                         replace=False)
+    worst = 0.0
+    for v in targets:
+        path = [int(v)]
+        while pred[0, path[-1]] != -9999:
+            path.append(int(pred[0, path[-1]]))
+        if path[-1] != src[0]:
+            fail(f"predecessor path of {v} ends at {path[-1]}")
+        total = np.float32(0.0)
+        for a, b in zip(path[::-1][:-1], path[::-1][1:]):
+            total = np.float32(total + np.float32(Wl[a, b]))
+        worst = max(worst, abs(float(total) - float(d_p[0, v])))
+    if worst != 0.0:
+        fail(f"predecessor paths re-sum to their distances within {worst}")
+    log("geo_compat: 100 predecessor paths re-sum exactly to their "
+        "distances")
+
+    # nodal lengths against the mlp engine's over every edge
+    model = load_vae_from_checkpoint(
+        next(exp.glob("vae/*/checkpoints/best.pt")), None, "cuda")
+    decode_fn = make_decoder_image_fn(model, "spatial")
+    z = load_latents(cut)["z"].reshape(-1, D)
+    rows, cols = sparse.triu(W, k=1).nonzero()
+    (mlp, timings["lengths_mlp"]) = timed(
+        lambda: edge_lengths_riemannian_auto(decode_fn, z, rows, cols,
+                                             engine="mlp", device="cuda"))
+    (nodal, timings["lengths_nodal"]) = timed(
+        lambda: edge_lengths_riemannian_auto(decode_fn, z, rows, cols,
+                                             engine="nodal", device="cuda"))
+    # the mlp engine's probed affine segments sum a unit's pre-activation
+    # in another order than the conv decoder: where it sits within
+    # rounding of a ReLU kink the two gate it differently (as in phase 5),
+    # so 1e-4 of the edges may leave the bound
+    bad = ~np.isclose(nodal, mlp, rtol=1e-3, atol=1e-5)
+    rel = np.abs(nodal - mlp) / np.maximum(np.abs(mlp), 1e-30)
+    # the nodal engine's metric table (N D^2 f32) written once and
+    # gathered at both ends of every edge
+    nodal_bytes = 4 * D * D * (z.shape[0] + 2 * len(rows))
+    log(f"Riemannian lengths of {len(rows)} edges: mlp "
+        f"{timings['lengths_mlp']:.3f}s, nodal {timings['lengths_nodal']:.3f}"
+        f"s ({z.shape[0] * D} decoder JVP rows, {nodal_bytes / 1e9:.2f} GB "
+        f"of metrics); nodal vs mlp median rel "
+        f"{float(np.median(rel)):.3e}, max {float(rel.max()):.3e}, "
+        f"{int(bad.sum())} past rtol 1e-3 atol 1e-5")
+    if bad.mean() > 1e-4:
+        fail("nodal lengths differ from the mlp engine's beyond rtol 1e-3, "
+             "atol 1e-5 on more than 1e-4 of the edges")
+
+    # the kNN escape hatch, forced under the row count
+    zs = z[:HATCH_ROWS]
+    t0 = time.perf_counter()
+    d_h, i_h = knn_search(zs, 21, device="cuda", device_max=HATCH_ROWS - 1)
+    timings["knn_native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d_d, i_d = knn_search(zs, 21, device="cuda")
+    timings["knn_device"] = time.perf_counter() - t0
+    differ = np.nonzero((np.sort(i_h, 1) != np.sort(i_d, 1)).any(1))[0]
+    ties = 0
+    for r in differ:  # a near-tie: the k-th distances agree within 1e-5
+        if abs(d_h[r, -1] - d_d[r, -1]) > 1e-5 * max(d_d[r, -1], 1e-30):
+            fail(f"kNN escape hatch: row {r} differs beyond a near-tie")
+        ties += 1
+    log(f"kNN escape hatch on {HATCH_ROWS} rows, k=21: native host "
+        f"{timings['knn_native']:.3f}s, device route "
+        f"{timings['knn_device']:.3f}s; {ties} rows differ at near-ties")
+    return timings
+
+
 def main() -> None:
     try:
         import torch
@@ -1611,6 +2092,18 @@ def main() -> None:
         phase_baseline(work / "baseline")
         phase_baseline_step_reference()
         log(f"phases 11-12 {time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+        phase_vae_epoch()
+        log(f"phase 13 {time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+        phase_bf16(work / "bf16", pipe["exp"],
+                   {"vae": pipe["steps_per_s"],
+                    "transformer": pipe["transformer_steps_per_s"]})
+        log(f"phase 14 {time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+        phase_engines(pipe["exp"], work / "pipeline"
+                      / f"latents_train_{CODEBOOK_IMAGES}")
+        log(f"phase 15 {time.perf_counter() - t0:.3f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -46,3 +46,26 @@ def test_kernels_build_for_hopper_only():
     flags = list(NVCC_FLAGS)
     assert flags[flags.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert flags.count("-gencode") == 1
+
+
+def test_native_signatures_match_the_source():
+    """The host library's declarations (``native._SIGNATURES``) against
+    the ``extern "C"`` block of ``native/graph_core.cpp``."""
+    from vqvae_tpu_torch import native
+
+    ptr = ctypes.POINTER
+    types = {"int64_t*": ptr(ctypes.c_int64), "int32_t*": ptr(ctypes.c_int32),
+             "float*": ptr(ctypes.c_float), "int64_t": ctypes.c_int64,
+             "int": ctypes.c_int, "void": None}
+    text = native._SRC.read_text()
+    block = text[text.index('extern "C" {'):text.index('}  // extern "C"')]
+    found = {}
+    for ret, name, args in re.findall(r"^(\w+) (vq_\w+)\(([^)]*)\)", block,
+                                      re.M):
+        arg_types = [re.sub(r"^const ", "", re.sub(r"\s*\w+$", "", a.strip()))
+                     .replace(" ", "") for a in args.split(",")]
+        found[name] = ([types[t] for t in arg_types], types[ret])
+    declared = {name: (list(args), ret)
+                for name, (args, ret) in native._SIGNATURES.items()}
+    assert declared == found
+    assert {"vq_dijkstra_multi_source_pred", "vq_knn_exact"} <= set(found)

@@ -169,6 +169,10 @@ _IMPORT_CHECK = textwrap.dedent("""
     from vqvae_tpu_torch.ops.ell import BucketedGraph
     from vqvae_tpu_torch.tools import bench_gather_min
     from vqvae_tpu_torch.utils.checkpoint import load_vae_from_checkpoint
+    from vqvae_tpu_torch.ops import (EdgeList, connected_components_device,
+                                     edge_lengths_riemannian_nodal,
+                                     fit_kmedoids_with_connectivity_check,
+                                     knn_search, pullback_metrics)
     if not torch.cuda.is_available():
         # no entry point picks the CPU by itself: each needs device="cpu"
         z = np.zeros((4, 2), np.float32)
@@ -211,6 +215,14 @@ _IMPORT_CHECK = textwrap.dedent("""
             lambda: eval_codebook_metrics.main([]),
             lambda: pipeline.main(["--baseline",
                                    "configs/baseline_vqvae/config.yaml"]),
+            lambda: EdgeList.from_csr(sparse.eye(4, format="csr")),
+            lambda: EdgeList.from_arrays([0], [1], [1.0], 2),
+            lambda: connected_components_device(sparse.eye(4, format="csr")),
+            lambda: pullback_metrics(lambda v: v, z),
+            lambda: edge_lengths_riemannian_nodal(lambda v: v, z, [0], [1]),
+            lambda: fit_kmedoids_with_connectivity_check(
+                sparse.eye(4, format="csr"), K=2),
+            lambda: knn_search(z, 2, device_max=1),
         ]
         for call in calls:
             try:
@@ -228,6 +240,6 @@ def test_port_imports_no_jax_and_needs_a_device_without_cuda():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.split()
-    assert int(lines[0]) >= 53  # every module of every slice was imported
+    assert int(lines[0]) >= 56  # every module of every slice was imported
     if not torch.cuda.is_available():
         assert lines[-1] == "raised"

@@ -94,3 +94,45 @@ def test_batch_size_invariance():
                                      engine="edgewise", device="cpu")
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
     assert (a > 0).all()
+
+
+# -- the nodal engine (per-node pullback metrics) ----------------------------
+
+@pytest.mark.parametrize("topology", ["spatial", "flat"])
+def test_pullback_metrics_match_jax(topology):
+    from vqvae_tpu.ops.riemannian import pullback_metrics as jax_pullback
+    from vqvae_tpu_torch.ops.riemannian import pullback_metrics
+
+    jax_fn, port_fn = _models(topology=topology)
+    z, _, _ = _edges(n=40, e=1)
+    ref = jax_pullback(jax_fn, z, batch_size=64)
+    got = pullback_metrics(port_fn, z, batch_size=64, device="cpu")
+    assert got.shape == ref.shape == (40, LATENT, LATENT)
+    np.testing.assert_allclose(got, ref, rtol=1e-4,
+                               atol=1e-6 * np.abs(ref).max())
+    np.testing.assert_allclose(got, got.transpose(0, 2, 1), rtol=1e-5,
+                               atol=1e-7 * np.abs(got).max())
+
+
+@pytest.mark.parametrize("topology,rtol", [("spatial", 1e-3),
+                                           ("flat", 1e-4)])
+def test_nodal_engine_matches_edgewise_and_jax(topology, rtol, monkeypatch):
+    """JAX's own bounds for nodal against edgewise (spatial rtol 1e-3,
+    flat 1e-4, atol 1e-5); against JAX's nodal engine rtol 1e-4."""
+    jax_fn, port_fn = _models(topology=topology)
+    z, rows, cols = _edges(n=60, e=250, seed=4)
+    nodal = edge_lengths_riemannian_auto(port_fn, z, rows, cols,
+                                         batch_size=64, engine="nodal",
+                                         device="cpu")
+    edgewise = edge_lengths_riemannian_auto(port_fn, z, rows, cols,
+                                            batch_size=64,
+                                            engine="edgewise", device="cpu")
+    np.testing.assert_allclose(nodal, edgewise, rtol=rtol, atol=1e-5)
+    monkeypatch.setenv("VQVAE_TPU_RIEMANNIAN", "nodal")
+    ref = jax_lengths(jax_fn, z, rows, cols, batch_size=64)
+    np.testing.assert_allclose(nodal, ref, rtol=1e-4)
+    from vqvae_tpu_torch.ops.riemannian import edge_lengths_riemannian_nodal
+    blocks = edge_lengths_riemannian_nodal(port_fn, z, rows, cols,
+                                           batch_size=64, edge_block=100,
+                                           device="cpu")
+    np.testing.assert_allclose(blocks, nodal, rtol=1e-6)

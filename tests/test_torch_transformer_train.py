@@ -208,7 +208,53 @@ def test_resume_from_latest(tmp_path, full):
 
 
 def test_cli_refuses_bf16(tmp_path):
+    """``model.dtype``: the CLI trains with ``bfloat16`` (float32
+    parameters and checkpoints, finite losses) and refuses a dtype that is
+    not floating."""
     path = _stage(tmp_path, epochs=1, lr=3e-4)
     cfg = load_config(path, {"model": {"dtype": "bfloat16"}})
-    with pytest.raises(ValueError, match="float32 only"):
-        train_transformer_main(cfg, device="cpu")
+    out = train_transformer_main(cfg, device="cpu")
+    rows = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    assert len(rows) == 1 and np.isfinite(rows[0]["train_loss"])
+    latest = read_checkpoint(out / "checkpoints" / "latest.pt")
+    assert all(v.dtype == torch.float32
+               for v in latest["model_state_dict"].values())
+    assert yaml.safe_load((out / "params.yaml").read_text())["dtype"] == \
+        "bfloat16"
+    for bad in ("int8", "float8"):
+        cfg = load_config(path, {"model": {"dtype": bad}})
+        with pytest.raises(ValueError, match="model.dtype"):
+            train_transformer_main(cfg, device="cpu")
+
+
+def test_run_epoch_matches_jax():
+    """The per-batch ``run_epoch`` (host batches, loss read once) against
+    JAX's, dropout 0, from the same weights: both loaders shuffle with
+    ``default_rng(seed + epoch)``, so the batches are the same. rtol 1e-5
+    on the train and the eval epoch's loss."""
+    codes, labels = _codes()
+    jax_loader = JaxCodeLoader(codes[:100, :-1], codes[:100, 1:],
+                               labels[:100], batch_size=32, shuffle=True)
+    jax_engine = JaxEngine(JaxTransformer(**CFG), lr=3e-4, cosine_t_max=2,
+                           steps_per_epoch=len(jax_loader), seed=0)
+    state = jax_engine.init_state(seq_len=15)
+    params = jax.tree_util.tree_map(np.asarray, jax.device_get(state.params))
+    state, jtr = jax_engine.run_epoch(state, jax_loader, True, 1,
+                                      jax.random.key(1))
+    _, jva = jax_engine.run_epoch(state, jax_loader, False, 1,
+                                  jax.random.key(1))
+
+    loader = CodeLoader(codes[:100, :-1], codes[:100, 1:], labels[:100],
+                        batch_size=32, shuffle=True)
+    model = Transformer(**CFG)
+    model.load_state_dict(transformer_state_dict_from_jax(params))
+    engine = TransformerEngine(model, lr=3e-4, cosine_t_max=2,
+                               steps_per_epoch=len(loader), seed=0,
+                               device="cpu")
+    tr = engine.run_epoch(loader, True, 1)
+    va = engine.run_epoch(loader, False, 1)
+    assert engine.step == engine.opt.count == 4  # 100 rows, the last padded
+    np.testing.assert_allclose(tr, jtr, rtol=1e-5)
+    np.testing.assert_allclose(va, jva, rtol=1e-5)
+    assert va < tr

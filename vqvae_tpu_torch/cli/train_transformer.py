@@ -8,7 +8,9 @@ Labels come from ``data.labels_path``: a latents directory (its
 ``<out>/checkpoints/best.pt`` and ``latest.pt``, ``metrics.csv``,
 ``metrics.jsonl`` and ``params.yaml``. With ``resume: true`` the run
 starts from ``latest.pt``: the full state when it holds the optimizer,
-the weights and step otherwise. The port trains in float32 only.
+the weights and step otherwise. ``model.dtype`` (``float32``,
+``bfloat16`` or ``float16``) sets the compute dtype; the parameters and
+checkpoints stay float32.
 
 Run: ``python -m vqvae_tpu_torch.cli.train_transformer --config <yaml>
 [--device cpu]``.
@@ -23,6 +25,7 @@ import numpy as np
 from ..config import Config, load_config
 from ..data.codes import get_code_loaders
 from ..device import resolve_device
+from ..models.cast import resolve_dtype
 from ..models.transformer import Transformer
 from ..train.transformer_engine import TransformerEngine
 from ..utils.checkpoint import read_checkpoint
@@ -59,10 +62,10 @@ def train_transformer_main(cfg: Config, device=None) -> Path:
     model_cfg = dict(cfg["model"])
     train_cfg = cfg["training"]
     seed = int(cfg.get("system", Config({})).get("seed", 42))
-    dtype = str(model_cfg.pop("dtype", "float32"))
-    if dtype != "float32":
-        raise ValueError(f"model.dtype {dtype!r}: the port trains in "
-                         f"float32 only (bf16 compute is not ported yet)")
+    # e.g. "bfloat16": bf16 compute with float32 parameters (raises on a
+    # name that is not a floating dtype)
+    model_cfg["dtype"] = str(model_cfg.get("dtype", "float32"))
+    resolve_dtype(model_cfg["dtype"])
 
     out_dir = Path(cfg["out"]["dir"])
     labels_path = _resolve_labels_path(data_cfg.get("labels_path"))

@@ -6,7 +6,9 @@ Spatial runs nest their outputs under ``<out_dir>/spatial_vae_<dataset>``.
 As in the JAX package, a cosine scheduler anneals over ``max_epochs``, not
 ``scheduler.t_max``. Writes ``checkpoints/best.pt`` and ``latest.pt``,
 ``latents_train`` / ``latents_val``, ``recon_grid.png``, ``metrics.csv``,
-``metrics.jsonl`` and ``params.yaml``.
+``metrics.jsonl`` and ``params.yaml``. ``model.dtype`` (``float32``,
+``bfloat16`` or ``float16``) sets the compute dtype; the parameters and
+checkpoints stay float32.
 
 Run: ``python -m vqvae_tpu_torch.cli.train_vae --config <yaml>
 [--device cpu]``.
@@ -21,6 +23,7 @@ from ..config import Config, load_config
 from ..data import get_data_loaders
 from ..device import resolve_device
 from ..models import VAE
+from ..models.cast import resolve_dtype
 from ..train import VAEEngine
 from ..utils.checkpoint import read_checkpoint
 from ..utils.logging import MetricsLogger
@@ -37,10 +40,10 @@ def train_vae_main(cfg: Config, topology: Optional[str] = None,
     beta = float(model_cfg.pop("beta", 1.0))
     topology = topology or model_cfg.pop("topology", "flat")
     model_cfg.pop("topology", None)
-    dtype = str(model_cfg.pop("dtype", "float32"))
-    if dtype != "float32":
-        raise ValueError(f"model.dtype {dtype!r}: the port trains in "
-                         f"float32 only (bf16 compute is not ported yet)")
+    # e.g. "bfloat16": bf16 compute with float32 parameters (raises on a
+    # name that is not a floating dtype)
+    model_cfg["dtype"] = str(model_cfg.get("dtype", "float32"))
+    resolve_dtype(model_cfg["dtype"])
 
     data_cfg = cfg["data"]
     train_loader, val_loader = get_data_loaders(

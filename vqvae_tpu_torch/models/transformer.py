@@ -23,6 +23,14 @@ The arithmetic follows flax's modules, op by op:
   on the embeddings, the attention weights, after attention and after the
   MLP, drawn from an explicit ``torch.Generator``.
 
+``dtype`` (flax's): the parameters stay float32; the embeddings are cast
+to ``dtype``, every dense layer computes in it (``models/cast.py``), the
+residual stream stays in it, the LayerNorms normalize in float32 and
+return it, and attention follows flax's ``dot_product_attention_weights``:
+the query divided by sqrt(head_dim) rounded to ``dtype``, the logits in
+``dtype``, masked to ``finfo(dtype).min``, and the softmax computed in
+``dtype`` op by op (max, exp, sum, divide). The logits come back float32.
+
 Parameters use torch's layouts (``nn.Linear`` weights are (out, in));
 ``utils.checkpoint.transformer_state_dict_from_jax`` carries flax's
 params across.
@@ -36,6 +44,8 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .cast import Linear, resolve_dtype, set_compute_dtype
 
 _INIT_STD = 0.02
 LN_EPS = 1e-6
@@ -55,8 +65,23 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     return torch.where(keep, x / keep_prob, torch.zeros((), device=x.device))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu`` (the tanh approximation). In half precision it
+    runs op by op in the input's dtype with the constants rounded to it,
+    as XLA evaluates ``jax.nn.gelu`` there."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` (epsilon 1e-6, fast variance)."""
+    """flax ``nn.LayerNorm`` (epsilon 1e-6, fast variance); a half
+    precision input is normalized in float32 and the result cast back."""
 
     def __init__(self, dim: int, eps: float = LN_EPS):
         super().__init__()
@@ -65,6 +90,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            return self.forward(x.float()).to(x.dtype)
         mu = x.mean(-1, keepdim=True)
         mu2 = (x * x).mean(-1, keepdim=True)
         var = torch.clamp_min(mu2 - mu * mu, 0.0)
@@ -90,10 +117,10 @@ class Attention(nn.Module):
                              f"n_head {n_head}")
         self.n_head, self.head_dim = n_head, embed_dim // n_head
         self.dropout = dropout
-        self.query = nn.Linear(embed_dim, embed_dim)
-        self.key = nn.Linear(embed_dim, embed_dim)
-        self.value = nn.Linear(embed_dim, embed_dim)
-        self.out = nn.Linear(embed_dim, embed_dim)
+        self.query = Linear(embed_dim, embed_dim)
+        self.key = Linear(embed_dim, embed_dim)
+        self.value = Linear(embed_dim, embed_dim)
+        self.out = Linear(embed_dim, embed_dim)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None,
@@ -111,11 +138,21 @@ class Attention(nn.Module):
             k, v = cache.keys[layer], cache.values[layer]
             mask = (torch.arange(k.shape[1], device=x.device)
                     <= i).view(1, 1, 1, -1)
-        q = q / math.sqrt(self.head_dim)
+        if q.dtype == torch.float32:
+            q = q / math.sqrt(self.head_dim)
+        else:  # flax divides by sqrt(depth) rounded to the dtype
+            q = q / torch.tensor(math.sqrt(self.head_dim), dtype=q.dtype)
         w = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
-            w = torch.where(mask, w, torch.full((), _NEG, device=x.device))
-        w = torch.softmax(w, dim=-1)
+            neg = _NEG if w.dtype == torch.float32 else \
+                torch.finfo(w.dtype).min
+            w = torch.where(mask, w, torch.full((), neg, dtype=w.dtype,
+                                                device=x.device))
+        if w.dtype == torch.float32:
+            w = torch.softmax(w, dim=-1)
+        else:  # jax.nn.softmax in the dtype, op by op
+            e = torch.exp(w - w.amax(dim=-1, keepdim=True))
+            w = e / e.sum(dim=-1, keepdim=True)
         w = dropout(w, self.dropout, generator, (1, 1) + w.shape[-2:])
         o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, t, d)
         return self.out(o)
@@ -128,8 +165,8 @@ class Block(nn.Module):
         self.ln1 = LayerNorm(embed_dim)
         self.attn = Attention(embed_dim, n_head, dropout)
         self.ln2 = LayerNorm(embed_dim)
-        self.fc1 = nn.Linear(embed_dim, 4 * embed_dim)
-        self.fc2 = nn.Linear(4 * embed_dim, embed_dim)
+        self.fc1 = Linear(embed_dim, 4 * embed_dim)
+        self.fc2 = Linear(4 * embed_dim, embed_dim)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None,
@@ -137,14 +174,15 @@ class Block(nn.Module):
                 ) -> torch.Tensor:
         h = self.attn(self.ln1(x), mask, generator, cache, layer)
         x = x + dropout(h, self.dropout, generator)
-        h = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
+        h = self.fc2(gelu(self.fc1(self.ln2(x))))
         return x + dropout(h, self.dropout, generator)
 
 
 class Transformer(nn.Module):
     def __init__(self, num_classes: int = 0, num_tokens: int = 512,
                  embed_dim: int = 256, n_layers: int = 4, n_head: int = 4,
-                 max_seq_len: int = 16, dropout: float = 0.1):
+                 max_seq_len: int = 16, dropout: float = 0.1,
+                 dtype="float32"):
         super().__init__()
         self.num_classes = int(num_classes)
         self.num_tokens = int(num_tokens)
@@ -159,7 +197,9 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(Block(embed_dim, n_head, dropout)
                                     for _ in range(n_layers))
         self.ln_f = LayerNorm(embed_dim)
-        self.head = nn.Linear(embed_dim, num_tokens, bias=False)
+        self.head = Linear(embed_dim, num_tokens, bias=False)
+        self.compute_dtype = resolve_dtype(dtype)
+        set_compute_dtype(self, dtype)
 
     def forward(self, idx: torch.Tensor, y: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
@@ -173,10 +213,12 @@ class Transformer(nn.Module):
             raise ValueError(f"a decode step takes one token a row, got {t}")
         if start + t > self.max_seq_len:
             raise ValueError(f"seq len {start + t} > max {self.max_seq_len}")
-        x = self.token_emb(idx) + self.pos_emb[:, start:start + t]
+        dt = self.compute_dtype
+        x = (self.token_emb(idx).to(dt)
+             + self.pos_emb[:, start:start + t].to(dt))
         x = dropout(x, self.dropout, generator)
         if self.class_emb is not None and y is not None:
-            x = x + self.class_emb(y)[:, None, :]
+            x = x + self.class_emb(y)[:, None, :].to(dt)
         mask = None
         if cache is None:
             pos = torch.arange(t, device=idx.device)
@@ -185,18 +227,16 @@ class Transformer(nn.Module):
             x = block(x, mask, generator, cache, i)
         if cache is not None:
             cache.index += t
-        return self.head(self.ln_f(x))
+        return self.head(self.ln_f(x)).float()
 
     def init_cache(self, batch_size: int) -> KVCache:
         """An empty KV cache on the model's device."""
-        p = self.pos_emb
+        dev, dt = self.pos_emb.device, self.compute_dtype
         shape = (batch_size, self.max_seq_len, self.n_head,
                  self.embed_dim // self.n_head)
         return KVCache(
-            [torch.zeros(shape, dtype=p.dtype, device=p.device)
-             for _ in self.blocks],
-            [torch.zeros(shape, dtype=p.dtype, device=p.device)
-             for _ in self.blocks])
+            [torch.zeros(shape, dtype=dt, device=dev) for _ in self.blocks],
+            [torch.zeros(shape, dtype=dt, device=dev) for _ in self.blocks])
 
 
 @torch.no_grad()

@@ -25,6 +25,12 @@ BatchNorm follows flax, not torch: running statistics move by flax's
 momentum 0.99 (torch's 0.01) towards the *biased* batch variance, and the
 padded rows of a last batch count in the batch statistics, as they do
 there (``BatchNorm``).
+
+``dtype`` (flax's): the parameters stay float32 and every conv, dense and
+transposed conv computes in ``dtype`` (``models/cast.py``); the norms
+normalize in float32 and return ``dtype``, with float32 running
+statistics; the encoder returns float32 mu and logvar and the decoder
+float32 logits, as the JAX model casts them.
 """
 from __future__ import annotations
 
@@ -34,6 +40,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .cast import (Conv2d, ConvTranspose2d, Linear, resolve_dtype,
+                   set_compute_dtype)
 
 # flax's truncated-normal variance scaling divides the target std by the
 # std of a unit normal truncated to [-2, 2]
@@ -47,7 +56,8 @@ class BatchNorm(nn.BatchNorm2d):
     frameworks do) and then sets ``running = m * running + (1 - m) * batch``
     with flax's momentum ``m`` = 0.99 and the biased batch variance; torch's
     own update would use momentum 0.1 and the unbiased variance. Eval mode
-    is ``nn.BatchNorm2d``'s. State-dict names are unchanged.
+    is ``nn.BatchNorm2d``'s. State-dict names are unchanged. A half
+    precision input is normalized in float32 and the result cast back.
     """
 
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.99):
@@ -55,18 +65,51 @@ class BatchNorm(nn.BatchNorm2d):
         self.flax_momentum = momentum
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            return self._forward_flax(x)
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
-            mean = x.mean((0, 2, 3))
-            var = x.var((0, 2, 3), unbiased=False)
-            m = self.flax_momentum
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-            self.num_batches_tracked.add_(1)
+            self._update_running(x.mean((0, 2, 3)),
+                                 x.var((0, 2, 3), unbiased=False))
         return y
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.flax_momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        self.num_batches_tracked.add_(1)
+
+    def _forward_flax(self, x: torch.Tensor) -> torch.Tensor:
+        """A half precision input, as flax normalizes it: float32 batch
+        statistics with the fast variance ``max(E[x^2] - E[x]^2, 0)``,
+        ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, the
+        result rounded to the input's dtype."""
+        xf = x.float()
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean,
+                                  0.0)
+            with torch.no_grad():
+                self._update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm``; a half precision input is normalized in float32
+    and the result cast back."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            return super().forward(x.float()).to(x.dtype)
+        return super().forward(x)
 
 
 def _norm(norm_type: str, ch: int) -> nn.Module:
@@ -79,7 +122,7 @@ def _norm(norm_type: str, ch: int) -> nn.Module:
         groups = max(1, min(32, ch))
         while ch % groups != 0 and groups > 1:
             groups -= 1
-        return nn.GroupNorm(groups, ch, eps=1e-6)  # flax GroupNorm epsilon
+        return GroupNorm(groups, ch, eps=1e-6)  # flax GroupNorm epsilon
     return nn.Identity()
 
 
@@ -92,25 +135,25 @@ class Encoder(nn.Module):
         self.topology = topology
         layers, cin = [], in_channels
         for ch in channels:
-            layers += [nn.Conv2d(cin, ch, 3, stride=2, padding=1),
+            layers += [Conv2d(cin, ch, 3, stride=2, padding=1),
                        _norm(norm_type, ch), nn.ReLU()]
             cin = ch
         self.conv_layers = nn.Sequential(*layers)
         if topology == "spatial":
-            self.fc_mu = nn.Conv2d(cin, latent_dim, 1)
-            self.fc_logvar = nn.Conv2d(cin, latent_dim, 1)
+            self.fc_mu = Conv2d(cin, latent_dim, 1)
+            self.fc_logvar = Conv2d(cin, latent_dim, 1)
         else:
-            self.fc_mu = nn.Linear(cin * 16, latent_dim)
-            self.fc_logvar = nn.Linear(cin * 16, latent_dim)
+            self.fc_mu = Linear(cin * 16, latent_dim)
+            self.fc_logvar = Linear(cin * 16, latent_dim)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (B, H, W, C) -> (mu, logvar), NHWC grids when spatial."""
         h = self.conv_layers(x.permute(0, 3, 1, 2))
         if self.topology == "spatial":
-            return (self.fc_mu(h).permute(0, 2, 3, 1),
-                    self.fc_logvar(h).permute(0, 2, 3, 1))
+            return (self.fc_mu(h).permute(0, 2, 3, 1).float(),
+                    self.fc_logvar(h).permute(0, 2, 3, 1).float())
         h = h.flatten(1)  # C-major, as the reference flattens
-        return self.fc_mu(h), self.fc_logvar(h)
+        return self.fc_mu(h).float(), self.fc_logvar(h).float()
 
 
 class Decoder(nn.Module):
@@ -125,29 +168,29 @@ class Decoder(nn.Module):
             raise ValueError(f"Unsupported output size: {output_image_size}")
         if topology == "spatial":
             # 4 -> 8 -> 16 -> {28, 32}: two k4s2p1 deconvs, then the head
-            self.conv_in = nn.Conv2d(latent_dim, chs[0], 1)
+            self.conv_in = Conv2d(latent_dim, chs[0], 1)
             layers, cin = [], chs[0]
             for ch in chs[1:3]:
-                layers += [nn.ConvTranspose2d(cin, ch, 4, stride=2, padding=1),
+                layers += [ConvTranspose2d(cin, ch, 4, stride=2, padding=1),
                            _norm(norm_type, ch), nn.ReLU()]
                 cin = ch
             head_pad = 1 if output_image_size == 32 else 3
-            layers.append(nn.ConvTranspose2d(cin, out_channels, 4, stride=2,
-                                             padding=head_pad))
+            layers.append(ConvTranspose2d(cin, out_channels, 4, stride=2,
+                                          padding=head_pad))
             self.deconv_layers = nn.Sequential(*layers)
         else:
             # 4 -> {7, 8} -> {14, 16} -> {28, 32}
             op = 1 if output_image_size == 32 else 0
-            self.fc = nn.Linear(latent_dim, chs[0] * 16)
+            self.fc = Linear(latent_dim, chs[0] * 16)
             self.deconv1 = nn.Sequential(
-                nn.ConvTranspose2d(chs[0], chs[1], 3, stride=2, padding=1,
-                                   output_padding=op),
+                ConvTranspose2d(chs[0], chs[1], 3, stride=2, padding=1,
+                                output_padding=op),
                 _norm(norm_type, chs[1]), nn.ReLU())
             self.deconv2 = nn.Sequential(
-                nn.ConvTranspose2d(chs[1], chs[2], 4, stride=2, padding=1),
+                ConvTranspose2d(chs[1], chs[2], 4, stride=2, padding=1),
                 _norm(norm_type, chs[2]), nn.ReLU())
-            self.output_layer = nn.ConvTranspose2d(chs[2], out_channels, 4,
-                                                   stride=2, padding=1)
+            self.output_layer = ConvTranspose2d(chs[2], out_channels, 4,
+                                                stride=2, padding=1)
         self._ch0 = chs[0]
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
@@ -157,7 +200,7 @@ class Decoder(nn.Module):
         else:
             h = self.fc(z).view(-1, self._ch0, 4, 4)
             h = self.output_layer(self.deconv2(self.deconv1(h)))
-        return h.permute(0, 2, 3, 1)
+        return h.permute(0, 2, 3, 1).float()
 
 
 class VAE(nn.Module):
@@ -172,7 +215,8 @@ class VAE(nn.Module):
                  free_bits: float = 0.5, capacity_max: float = 15.0,
                  capacity_anneal_steps: int = 50_000,
                  capacity_mode: str = "abs",
-                 spatial_free_bits: Optional[float] = None):
+                 spatial_free_bits: Optional[float] = None,
+                 dtype="float32"):
         super().__init__()
         if recon_loss not in ("bce", "mse"):
             raise ValueError(f"recon_loss must be bce or mse, got {recon_loss}")
@@ -196,6 +240,8 @@ class VAE(nn.Module):
                                norm_type, topology)
         self.decoder = Decoder(dec_channels, latent_dim, in_channels,
                                output_image_size, norm_type, topology)
+        self.compute_dtype = resolve_dtype(dtype)
+        set_compute_dtype(self, dtype)
 
     def encode(self, x: torch.Tensor):
         return self.encoder(x)

@@ -1,12 +1,13 @@
 """ctypes bindings to the port's native host graph library (graph_core.cpp).
 
-The port's own copy of ``vqvae_tpu/native``: the same C++ functions, less
-the two the port's path does not call (predecessor Dijkstra, exact kNN).
-The shared library is built with g++ at first use into the
-package's ignored ``_build/`` directory (see ``vqvae_tpu_torch._build``).
+The port's own copy of ``vqvae_tpu/native``: the same C++ functions. The
+shared library is built with g++ at first use into the package's ignored
+``_build/`` directory (see ``vqvae_tpu_torch._build``).
 
-- ``dijkstra_multi_source(W_csr, sources)`` -> (K, N) float32
+- ``dijkstra_multi_source(W_csr, sources, return_predecessors=False)`` ->
+  (K, N) float32 [, (K, N) int32 predecessors, -9999 where none]
 - ``connected_components(W_csr)`` -> (n_components, labels)
+- ``knn_exact(z, k)`` -> (N, k) distances, (N, k) int64 indices
 - ``ell_fill_bucket``, ``knn_assemble``, ``edges_assemble``
 """
 from __future__ import annotations
@@ -31,6 +32,8 @@ _I64, _INT = ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "vq_dijkstra_multi_source": (
         [_I64P, _I32P, _F32P, _I64, _I32P, _I64, _F32P, _INT], None),
+    "vq_dijkstra_multi_source_pred": (
+        [_I64P, _I32P, _F32P, _I64, _I32P, _I64, _F32P, _I32P, _INT], None),
     "vq_connected_components": ([_I64P, _I32P, _I64, _I32P], _I64),
     "vq_ell_fill_bucket": (
         [_I32P, _F32P, _I64P, _I64P, _I64, _I64, _I64, _I32P, _F32P, _INT],
@@ -40,6 +43,7 @@ _SIGNATURES = {
         _I64),
     "vq_edges_assemble": (
         [_I64P, _I64P, _F32P, _I64, _I64, _I64P, _I32P, _F32P, _INT], _I64),
+    "vq_knn_exact": ([_F32P, _I64, _I64, _I64, _F32P, _I64P, _INT], None),
 }
 
 
@@ -69,8 +73,10 @@ def _ptr(a: np.ndarray, typ):
     return a.ctypes.data_as(ctypes.POINTER(typ))
 
 
-def dijkstra_multi_source(W, sources) -> np.ndarray:
-    """(K, N) float32 shortest-path distances, threaded over sources."""
+def dijkstra_multi_source(W, sources, return_predecessors: bool = False):
+    """(K, N) float32 shortest-path distances, threaded over sources; with
+    ``return_predecessors`` also the (K, N) int32 predecessors (scipy's
+    -9999 at each source and at unreachable nodes)."""
     lib = _load()
     indptr, indices, data, n = _csr_parts(W)
     if data.size and (data < 0).any():
@@ -79,6 +85,14 @@ def dijkstra_multi_source(W, sources) -> np.ndarray:
     if sources.size and (sources.min() < 0 or sources.max() >= n):
         raise ValueError("source index out of range")
     out = np.empty((len(sources), n), np.float32)
+    if return_predecessors:
+        pred = np.empty((len(sources), n), np.int32)
+        lib.vq_dijkstra_multi_source_pred(
+            _ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
+            _ptr(data, ctypes.c_float), n, _ptr(sources, ctypes.c_int32),
+            len(sources), _ptr(out, ctypes.c_float),
+            _ptr(pred, ctypes.c_int32), _threads())
+        return out, pred
     lib.vq_dijkstra_multi_source(
         _ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
         _ptr(data, ctypes.c_float), n, _ptr(sources, ctypes.c_int32),
@@ -94,6 +108,20 @@ def connected_components(W) -> Tuple[int, np.ndarray]:
         _ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32), n,
         _ptr(labels, ctypes.c_int32))
     return int(n_comp), labels
+
+
+def knn_exact(z: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact Euclidean kNN on the host, self-matches included: (N, k)
+    float32 distances ascending and int64 indices (+inf / -1 past N)."""
+    lib = _load()
+    z = np.ascontiguousarray(z, np.float32)
+    n, d = z.shape
+    dists = np.empty((n, k), np.float32)
+    idx = np.empty((n, k), np.int64)
+    lib.vq_knn_exact(_ptr(z, ctypes.c_float), n, d, k,
+                     _ptr(dists, ctypes.c_float), _ptr(idx, ctypes.c_int64),
+                     _threads())
+    return dists, idx
 
 
 def ell_fill_bucket(src_rows: np.ndarray, w: np.ndarray, starts: np.ndarray,

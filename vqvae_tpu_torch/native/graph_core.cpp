@@ -7,11 +7,10 @@
 // and FAISS (C++) — reference src/geo/geo_shortest_paths.py:9,
 // knn_graph_optimized.py:14-22. This library is the first-party
 // replacement: multi-source Dijkstra over CSR with a binary heap
-// (threaded across sources), union-find connected components, and the
-// one-pass CSR / ELL assemblies. The device path (ops/) remains primary
-// for large graphs; this is the small-graph fast path and the host oracle.
-// (The JAX copy's predecessor Dijkstra and exact kNN are not on the
-// port's path and are left out.)
+// (threaded across sources, optionally with predecessors), union-find
+// connected components, the one-pass CSR / ELL assemblies and blocked
+// exact kNN. The device path (ops/) remains primary for large graphs;
+// this is the small-graph fast path and the host oracle.
 //
 // Build (vqvae_tpu_torch/native/__init__.py does this at first use):
 //   g++ -O3 -march=native -shared -fPIC -std=c++17 -pthread
@@ -19,6 +18,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <functional>
@@ -31,10 +31,14 @@ namespace {
 
 constexpr float kInf = std::numeric_limits<float>::infinity();
 
+// scipy.sparse.csgraph uses -9999 for "no predecessor"
+constexpr int32_t kNoPred = -9999;
+
 void dijkstra_one(const int64_t* indptr, const int32_t* indices,
                   const float* weights, int64_t n, int32_t source,
-                  float* dist) {
+                  float* dist, int32_t* pred /* nullable */) {
   std::fill(dist, dist + n, kInf);
+  if (pred != nullptr) std::fill(pred, pred + n, kNoPred);
   using Item = std::pair<float, int32_t>;
   std::priority_queue<Item, std::vector<Item>, std::greater<Item>> heap;
   dist[source] = 0.0f;
@@ -48,6 +52,7 @@ void dijkstra_one(const int64_t* indptr, const int32_t* indices,
       float nd = d + weights[e];
       if (nd < dist[v]) {
         dist[v] = nd;
+        if (pred != nullptr) pred[v] = u;
         heap.emplace(nd, v);
       }
     }
@@ -105,7 +110,21 @@ void vq_dijkstra_multi_source(const int64_t* indptr, const int32_t* indices,
                               const int32_t* sources, int64_t k,
                               float* out, int threads) {
   run_threaded(k, threads, [&](int64_t s) {
-    dijkstra_one(indptr, indices, weights, n, sources[s], out + s * n);
+    dijkstra_one(indptr, indices, weights, n, sources[s], out + s * n,
+                 nullptr);
+  });
+}
+
+// As above, also filling predecessors (k, n) int32 with scipy's -9999
+// sentinel for source/unreachable nodes.
+void vq_dijkstra_multi_source_pred(const int64_t* indptr,
+                                   const int32_t* indices,
+                                   const float* weights, int64_t n,
+                                   const int32_t* sources, int64_t k,
+                                   float* out, int32_t* pred, int threads) {
+  run_threaded(k, threads, [&](int64_t s) {
+    dijkstra_one(indptr, indices, weights, n, sources[s], out + s * n,
+                 pred + s * n);
   });
 }
 
@@ -310,6 +329,37 @@ int64_t vq_edges_assemble(const int64_t* rows, const int64_t* cols,
   });
   std::memcpy(indptr, off.data(), (n + 1) * sizeof(int64_t));
   return off[n];
+}
+
+// Exact kNN (euclidean), blocked over queries, threaded. Self-matches are
+// included (distance 0), mirroring the device kernel's contract.
+// dists/idx have shape (n, k) row-major.
+void vq_knn_exact(const float* z, int64_t n, int64_t d, int64_t k,
+                  float* dists, int64_t* idx, int threads) {
+  const int64_t kk = std::min(k, n);
+  run_threaded(n, threads, [&](int64_t i) {
+    const float* qi = z + i * d;
+    thread_local std::vector<std::pair<float, int64_t>> cand;
+    cand.resize(n);
+    for (int64_t j = 0; j < n; ++j) {
+      const float* xj = z + j * d;
+      float acc = 0.0f;
+      for (int64_t c = 0; c < d; ++c) {
+        float diff = qi[c] - xj[c];
+        acc += diff * diff;
+      }
+      cand[j] = {acc, j};
+    }
+    std::partial_sort(cand.begin(), cand.begin() + kk, cand.end());
+    for (int64_t j = 0; j < kk; ++j) {
+      dists[i * k + j] = std::sqrt(std::max(cand[j].first, 0.0f));
+      idx[i * k + j] = cand[j].second;
+    }
+    for (int64_t j = kk; j < k; ++j) {
+      dists[i * k + j] = kInf;
+      idx[i * k + j] = -1;
+    }
+  });
 }
 
 }  // extern "C"

@@ -4,7 +4,8 @@ The port of ``vqvae_tpu/ops/backend.py``. Two backends, identical
 distances:
 
 - ``device``: the bucketed Gauss-Seidel relaxation (``ops/ell.py``) on the
-  GPU — wins at scale (large E x K);
+  GPU — wins at scale (large E x K) — or, for an ``EdgeList``, the
+  edge-list Bellman-Ford (``ops/shortest_paths.py``);
 - ``host``: the native C++ threaded binary-heap Dijkstra
   (``vqvae_tpu_torch.native``) — wins on small graphs.
 
@@ -20,7 +21,7 @@ from scipy import sparse
 from .. import native
 from ..device import resolve_device
 from .ell import BucketedGraph, multi_source_shortest_paths_ell
-from .shortest_paths import EdgeList
+from .shortest_paths import EdgeList, multi_source_shortest_paths
 
 
 def _host_threads() -> int:
@@ -46,7 +47,8 @@ def multi_source_distances(W_or_graph, sources: np.ndarray,
                            device_out: bool = False, device=None):
     """(N, K) float32 distances from each of K sources to all nodes.
 
-    ``W_or_graph``: a scipy sparse matrix or a ``BucketedGraph``.
+    ``W_or_graph``: a scipy sparse matrix, a ``BucketedGraph`` or an
+    ``EdgeList``.
     ``d0``: per-entry upper bounds warm-starting the device relaxation
     (the host Dijkstra, exact from scratch, ignores it). ``device_out``
     returns the device tensor instead of numpy. ``device`` places the
@@ -54,10 +56,6 @@ def multi_source_distances(W_or_graph, sources: np.ndarray,
     """
     sources = np.asarray(sources)
     is_csr = sparse.issparse(W_or_graph)
-    if isinstance(W_or_graph, EdgeList):
-        raise NotImplementedError(
-            "the edge-list Bellman-Ford engine is not ported yet; pass a "
-            "scipy CSR matrix or a BucketedGraph")
     if backend == "auto":
         if is_csr:
             work = float(W_or_graph.nnz) * len(sources)
@@ -72,8 +70,11 @@ def multi_source_distances(W_or_graph, sources: np.ndarray,
             W_or_graph, sources.astype(np.int32)).T.copy()
     if backend != "device":
         raise ValueError(f"unknown backend {backend!r}")
-    graph = (W_or_graph if isinstance(W_or_graph, BucketedGraph)
-             else BucketedGraph.from_csr(W_or_graph,
-                                         device=resolve_device(device)))
-    d = multi_source_shortest_paths_ell(graph, sources, d0=d0)
+    if isinstance(W_or_graph, EdgeList):
+        d = multi_source_shortest_paths(W_or_graph, sources, d0=d0)
+    else:
+        graph = (W_or_graph if isinstance(W_or_graph, BucketedGraph)
+                 else BucketedGraph.from_csr(W_or_graph,
+                                             device=resolve_device(device)))
+        d = multi_source_shortest_paths_ell(graph, sources, d0=d0)
     return d if device_out else d.cpu().numpy()

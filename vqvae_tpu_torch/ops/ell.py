@@ -21,8 +21,15 @@ result equals the JAX engine's bit for bit. ``d0`` may carry any per-entry
 upper bounds (warm starts); relaxation is monotone from above.
 
 The sweep is a plain PyTorch loop on the device (the JAX engine has no
-Pallas kernel either); the chunk-level frontier skipping of the JAX
-engine (``active``, off by default there) is not ported.
+Pallas kernel either), with one host read a sweep.
+
+``active`` (off by default, as in JAX) is JAX's chunk-level frontier
+skipping: two row masks, ``cp`` (rows improved in the previous sweep) and
+``cc`` (rows improved so far in this sweep), and a chunk is relaxed only
+when some in-neighbor of its rows is marked in either. JAX decides that
+on the device (``lax.cond``); this eager loop reads the decision back, one
+host read a chunk, so the skipped chunks, the sweep count and the relaxed
+chunks per bucket are JAX's exactly, and so is the fixed point.
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ from ..device import resolve_device
 
 _INF = np.float32(np.inf)
 
-# one record per solve: sweep count, wall seconds, K, effective bytes, GB/s
+# one record per solve: sweep count, wall seconds, K, effective bytes,
+# chunks visited and relaxed, the relaxed share (active_frac), GB/s
 ELL_STATS: list = []
 
 # row-chunk cap of a relaxation step (bounds the live (chunk, K) buffers)
@@ -225,17 +233,21 @@ def _row_chunk(n_rows: int) -> int:
 
 
 @torch.no_grad()
-def _ell_run(graph: BucketedGraph, d0: torch.Tensor, max_iters: int):
+def _ell_run(graph: BucketedGraph, d0: torch.Tensor, max_iters: int,
+             active: bool = False):
     """Gauss-Seidel relaxation in bucket-row layout; returns (distances in
     node order, sweeps, relaxed chunks per bucket)."""
     k = d0.shape[1]
     d_perm = d0[graph.perm_nodes]  # (N_pad, K) row-space distances
+    n_rows = d_perm.shape[0]
     offsets = np.cumsum([0] + [int(nb.shape[0]) for nb in graph.nbrs])
     counts = [0] * len(graph.nbrs)
+    cp = torch.ones(n_rows, dtype=torch.bool, device=d0.device)
     it, changed = 0, True
     while changed and it < max_iters:
         reverse = it % 2 == 1
         changed_dev = torch.zeros((), dtype=torch.bool, device=d0.device)
+        cc = torch.zeros(n_rows, dtype=torch.bool, device=d0.device)
         for b, (nb_all, wb_all) in enumerate(zip(graph.nbrs, graph.wts)):
             rows, deg = nb_all.shape
             if rows == 0:
@@ -247,6 +259,8 @@ def _ell_run(graph: BucketedGraph, d0: torch.Tensor, max_iters: int):
                 idx = n_chunks - 1 - i if reverse else i
                 r0 = int(offsets[b]) + idx * chunk
                 nb = nb_all[idx * chunk:(idx + 1) * chunk]
+                if active and not bool((cp[nb] | cc[nb]).any()):
+                    continue  # no in-neighbor moved: its candidates stand
                 wb = wb_all[idx * chunk:(idx + 1) * chunk]
                 cur = d_perm[r0:r0 + chunk]
                 new = cur
@@ -260,23 +274,32 @@ def _ell_run(graph: BucketedGraph, d0: torch.Tensor, max_iters: int):
                     for j in range(deg):
                         new = torch.minimum(new,
                                             d_perm[nb[:, j]] + wb[:, j, None])
-                changed_dev |= (new < cur).any()
+                if active:
+                    row_ch = (new < cur).any(dim=1)
+                    cc[r0:r0 + chunk] = row_ch
+                    changed_dev |= row_ch.any()
+                else:
+                    changed_dev |= (new < cur).any()
                 d_perm[r0:r0 + chunk] = new
                 counts[b] += 1
-        changed = bool(changed_dev)  # one host sync per sweep
+        changed = bool(changed_dev)  # one host read a sweep
+        cp = cc
         it += 1
     return d_perm[graph.inv_perm], it, counts
 
 
 def multi_source_shortest_paths_ell(graph: BucketedGraph, sources,
                                     d0: Optional[torch.Tensor] = None,
-                                    max_iters: Optional[int] = None
-                                    ) -> torch.Tensor:
+                                    max_iters: Optional[int] = None,
+                                    active: bool = False,
+                                    return_iters: bool = False):
     """(N, K) distances (a tensor on ``graph.device``) from each of K
     sources, by bucketed Gauss-Seidel relaxation.
 
     ``d0``: optional (N, K) per-entry upper bounds to warm-start from (the
-    cold start is +inf everywhere, 0 at each source's own column)."""
+    cold start is +inf everywhere, 0 at each source's own column).
+    ``active``: chunk-level frontier skipping (see the module notes).
+    ``return_iters`` also returns the sweep count."""
     dev = graph.device
     sources = torch.as_tensor(np.asarray(sources), dtype=torch.int64,
                               device=dev)
@@ -288,17 +311,26 @@ def multi_source_shortest_paths_ell(graph: BucketedGraph, sources,
     if max_iters is None:
         max_iters = n + 1
     t0 = time.perf_counter()
-    d, iters, counts = _ell_run(graph, d0, max_iters)
+    d, iters, counts = _ell_run(graph, d0, max_iters, active)
     dt = time.perf_counter() - t0
     # relaxed chunk of bucket b: a (K,) distance row + weight + index per
-    # edge slot, read + write of its (chunk, K) rows
-    swept = 0
+    # edge slot (+ two mask bytes when active), read + write of its
+    # (chunk, K) rows; a skipped chunk: its index slice + two mask gathers
+    swept = visits = relaxed = 0
     for b, nb in enumerate(graph.nbrs):
         rows, deg = int(nb.shape[0]), int(nb.shape[1])
-        if rows:
-            chunk = _row_chunk(rows)
-            swept += counts[b] * (chunk * deg * (k * 4 + 8)
-                                  + 2 * chunk * k * 4)
+        if rows == 0:
+            continue
+        chunk = _row_chunk(rows)
+        slots = chunk * deg
+        n_chunks = rows // chunk
+        swept += counts[b] * (slots * (k * 4 + 8 + (2 if active else 0))
+                              + 2 * chunk * k * 4)
+        swept += max(iters * n_chunks - counts[b], 0) * slots * 6
+        visits += iters * n_chunks
+        relaxed += counts[b]
     ELL_STATS.append({"iters": iters, "seconds": dt, "k": k, "bytes": swept,
+                      "chunk_visits": visits, "chunk_relaxed": relaxed,
+                      "active_frac": relaxed / max(visits, 1),
                       "gbps": swept / max(dt, 1e-9) / 1e9})
-    return d
+    return (d, iters) if return_iters else d

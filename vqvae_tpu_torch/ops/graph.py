@@ -3,9 +3,11 @@
 The port of ``vqvae_tpu/ops/graph.py``: kNN (``ops.knn``, on the device)
 -> sparse CSR adjacency with ``mutual`` (min / intersection) or ``union``
 (max) symmetrization, ``distance`` vs ``connectivity`` weights, self-edge
-stripping, and the LCC mask. CSR assembly and component bookkeeping are
-O(E) host work: scipy for small graphs, the port's native one-pass C++
-(``vqvae_tpu_torch.native``) above ``NATIVE_ASSEMBLE_MIN`` entries.
+stripping, the LCC mask and the connectivity statistics; and the blocked
+numpy exact kNN (``force_method="host"``). CSR assembly and component
+bookkeeping are O(E) host work: scipy for small graphs, the port's native
+one-pass C++ (``vqvae_tpu_torch.native``) above ``NATIVE_ASSEMBLE_MIN``
+entries.
 """
 from __future__ import annotations
 
@@ -98,10 +100,49 @@ def build_knn_graph_auto(
     device=None,
 ) -> Tuple[sparse.csr_matrix, Dict[str, np.ndarray]]:
     """Reference-compatible entry point: ``force_method="approx"`` takes
-    the fused selection, anything else the exact route (one tiled kernel
-    covers all N, so the reference's size threshold has no counterpart)."""
+    the fused selection, ``"host"`` the blocked numpy exact kNN (the
+    oracle that needs no device), anything else the exact device route
+    (one tiled kernel covers all N, so the reference's size threshold has
+    no counterpart)."""
+    if force_method == "host":
+        return _build_knn_graph_host(z, k, metric, mode, sym, device)
     return build_knn_graph(z, k=k, metric=metric, mode=mode, sym=sym,
                            approx=(force_method == "approx"), device=device)
+
+
+def _build_knn_graph_host(z, k, metric, mode, sym, device=None):
+    """Blocked numpy exact kNN: ``|a|^2 - 2 a.b + |b|^2`` (or ``1 - a.b``
+    for cosine) a block of rows at a time, ``argpartition`` then a stable
+    sort of the k + 1 candidates, then the self-match stripped."""
+    z = np.asarray(z, np.float32)
+    n = z.shape[0]
+    k_eff = max(0, min(k, n - 1))
+    if n == 0 or k_eff == 0:
+        return build_knn_graph(z, k, metric, mode, sym, device=device)
+    if metric == "cosine":
+        zn = z / (np.linalg.norm(z, axis=1, keepdims=True) + 1e-8)
+    else:
+        zn = z
+    sq = (zn * zn).sum(1)
+    kq = min(k_eff + 1, n)
+    dists = np.empty((n, kq), np.float32)
+    idxs = np.empty((n, kq), np.int64)
+    block = max(1, 2_000_000 // max(n, 1))
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        dots = zn[s:e] @ zn.T
+        d = ((1.0 - dots) if metric == "cosine"
+             else (sq[s:e, None] - 2 * dots + sq[None, :]))
+        part = np.argpartition(d, kq - 1, axis=1)[:, :kq]
+        pd = np.take_along_axis(d, part, axis=1)
+        order = np.argsort(pd, axis=1, kind="stable")
+        idxs[s:e] = np.take_along_axis(part, order, axis=1)
+        dists[s:e] = np.take_along_axis(pd, order, axis=1)
+    if metric == "euclidean":
+        dists = np.sqrt(np.maximum(dists, 0.0))
+    dists, idxs = _strip_self(dists, idxs, n)
+    W = _assemble(dists, idxs, n, mode, sym)
+    return W, {"distances": dists, "indices": idxs}
 
 
 def bfs_node_order(W: sparse.csr_matrix) -> np.ndarray:
@@ -154,3 +195,23 @@ def symmetric_csr_from_edges(rows: np.ndarray, cols: np.ndarray,
         return native.edges_assemble(rows, cols, w, n)
     W = sparse.csr_matrix((w, (rows, cols)), shape=(n, n))
     return W + W.T
+
+
+def analyze_graph_connectivity(W: sparse.csr_matrix) -> Dict:
+    """Connectivity statistics: node and edge counts, the components, the
+    largest one's size and share, and the weighted degrees' mean, min and
+    max."""
+    n = W.shape[0]
+    n_components, labels = connected_components(W, directed=False)
+    largest = int(np.bincount(labels).max()) if n_components > 1 else n
+    degrees = np.asarray(W.sum(axis=1)).ravel()
+    return {
+        "n_nodes": n,
+        "n_edges": int(W.nnz),
+        "n_components": int(n_components),
+        "largest_component_size": largest,
+        "connectivity_ratio": largest / max(n, 1),
+        "avg_degree": float(degrees.mean()) if n else 0.0,
+        "min_degree": float(degrees.min()) if n else 0.0,
+        "max_degree": float(degrees.max()) if n else 0.0,
+    }

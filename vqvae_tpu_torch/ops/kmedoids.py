@@ -15,7 +15,9 @@ distances. No N x N matrix is formed.
   both draw the same medoids from the same distances.
 
 Each distance pass picks its backend by work (``GraphHandle.choose``): the
-native host Dijkstra for small work, the device ELL relaxation otherwise.
+native host Dijkstra for small work, the device ELL relaxation otherwise;
+an ``EdgeList`` graph always relaxes on its device by edge-list
+Bellman-Ford.
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ from ..device import resolve_device
 from .backend import HOST_WORK_THRESHOLD, _native_ok, multi_source_distances
 from .ell import BucketedGraph
 from .graph import bfs_node_order
+from .shortest_paths import EdgeList
 
-GraphLike = Union[sparse.spmatrix, BucketedGraph]
+GraphLike = Union[sparse.spmatrix, BucketedGraph, EdgeList]
 
 # one record per kpp_parallel fit: passes, per-pass seconds, host sampling
 # seconds, device-graph build seconds, BFS reorder seconds
@@ -50,9 +53,15 @@ class GraphHandle:
         self._forced = None if backend == "auto" else backend
         self._csr = None
         self._bucketed = None
+        self._edges = None
         self._assume_sym = assume_symmetric
         self._build_s = 0.0
-        if isinstance(W, BucketedGraph):
+        if isinstance(W, EdgeList):
+            self._edges = W
+            self.device = W.device
+            self.n_nodes = W.n_nodes
+            self.nnz = int(W.src.shape[0])
+        elif isinstance(W, BucketedGraph):
             self._bucketed = W
             self.device = W.device
             self.n_nodes = W.n_nodes
@@ -82,14 +91,18 @@ class GraphHandle:
             if self._csr is None:
                 raise ValueError("host backend needs a scipy CSR graph")
             return multi_source_distances(self._csr, sources, "host")
+        if self._edges is not None:
+            return multi_source_distances(self._edges, sources, "device",
+                                          d0=d0, device_out=device_out)
         self.ensure_device_graph()
         return multi_source_distances(self._bucketed, sources, "device",
                                       d0=d0, device_out=device_out)
 
     def ensure_device_graph(self) -> None:
         """Build the bucketed device graph now (otherwise built lazily in
-        the first device ``distances`` call)."""
-        if self._bucketed is None:
+        the first device ``distances`` call); an ``EdgeList`` is already
+        on its device."""
+        if self._bucketed is None and self._csr is not None:
             t0 = time.perf_counter()
             self._bucketed = BucketedGraph.from_csr(
                 self._csr, assume_symmetric=self._assume_sym,
@@ -347,3 +360,29 @@ def fit_kmedoids(W: GraphLike, K: int = 512, init: str = "kpp",
         assign_orig[perm] = assign
         assign = assign_orig
     return medoids, assign, qe
+
+
+def fit_kmedoids_with_connectivity_check(
+    W, K: int = 512, init: str = "kpp", seed: int = 42, device=None
+) -> Tuple[np.ndarray, np.ndarray, float, dict]:
+    """``fit_kmedoids`` with the reference's connectivity metadata: node,
+    edge and component counts, the largest component's size, the medoid
+    count, the QE and the method (the JAX package's name for it)."""
+    from scipy.sparse.csgraph import connected_components
+
+    n = W.shape[0]
+    n_components, labels = connected_components(W, directed=False)
+    metadata = {
+        "n_nodes": int(n),
+        "n_edges": int(W.nnz),
+        "n_components": int(n_components),
+        "largest_component_size": int(np.bincount(labels).max()) if n else 0,
+    }
+    medoids, assign, qe = fit_kmedoids(W, K=K, init=init, seed=seed,
+                                       device=device)
+    metadata.update({
+        "n_medoids": len(medoids),
+        "quantization_error": qe,
+        "method": "tpu_kmedoids",
+    })
+    return medoids, assign, qe, metadata

@@ -10,6 +10,10 @@ exact re-rank (``_exact_rerank``):
 - ``"exact"`` (the JAX ``"xla"`` route): per (query tile, db tile) squared
   distances and an exact per-tile top-(k + margin), stacked across tiles.
 
+Above ``device_max`` rows (Euclidean only) the search runs the native
+exact kNN on the host (``native.knn_exact``), as the JAX package's
+escape hatch does.
+
 Self-matches are included (graph assembly strips them). Euclidean
 distances are returned as true distances, cosine as ``1 - similarity`` on
 normalized vectors.
@@ -22,6 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
 from .knn_select import CAND_LANES, dot_last, fused_select
 
@@ -154,6 +159,7 @@ def knn_search(
     bins: int = 1024,
     packed: bool = True,
     device: str | torch.device | None = None,
+    device_max: int = 4_000_000,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """All-pairs kNN of the rows of ``z`` (N, D): (distances, indices),
     each (N, k) numpy, ``k`` capped at N, self-matches included.
@@ -163,7 +169,9 @@ def knn_search(
     exact) is clamped to ``[128, round_up(N, 128)]``; for the fused route
     the effective ``bins`` halve until they divide it, so small N (e.g.
     N=300 -> db_tile 384 -> bins 384) runs the unpacked kernel K2.
-    ``query_block`` rows go to one ``fused_select`` call.
+    ``query_block`` rows go to one ``fused_select`` call. Above
+    ``device_max`` rows a Euclidean search runs the native exact kNN on
+    the host instead (threaded, distances in its own summation order).
     """
     kernel = resolve_knn_kernel(approx, kernel)
     dev = resolve_device(device)
@@ -178,6 +186,10 @@ def knn_search(
     if n == 0 or k <= 0:
         return np.empty((n, 0), np.float32), np.empty((n, 0), np.int64)
     k = min(k, n)
+    if n > device_max and metric == "euclidean":
+        KNN_EFFECTIVE.update(kernel="native", bins=None, packed=False,
+                             db_tile=None)
+        return native.knn_exact(z, k)
 
     query_tile = max(8, min(query_tile, _round_up(n, 8)))
     db_tile = max(128, min(db_tile, _round_up(n, 128)))

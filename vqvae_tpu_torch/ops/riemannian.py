@@ -6,8 +6,8 @@ z -> sigmoid(decoder(z)) flattened to pixels, dz = z_j - z_i. Spatial
 decoders decode each latent vector as a 1x1 grid (the reference
 unsqueezes 2-D z to (B, C, 1, 1)).
 
-Two engines, both gathering edge endpoints on the device from the (N, D)
-latent table and evaluating both endpoint JVPs in one decoder pass:
+Three engines. Two gather edge endpoints on the device from the (N, D)
+latent table and evaluate both endpoint JVPs in one decoder pass:
 
 - ``mlp``: on a 1x1 grid the spatial decoder is exactly an MLP (each
   transposed conv acts on a fixed 1x1 -> 2x2 -> 4x4 grid), so its dense
@@ -16,6 +16,12 @@ latent table and evaluating both endpoint JVPs in one decoder pass:
   probe (``_verify_affine_segments``) — when it fails, ``auto`` takes the
   conv engine, as the JAX package does.
 - ``edgewise``: the JVP of the conv decoder itself.
+
+The third, ``nodal``, computes each node's pullback metric G = J^T J once
+(the JVP of the node repeated D times against the D basis vectors, in one
+decoder pass per chunk of ``batch_size // D`` nodes), then each edge's
+``|J(z_a) v|`` as ``sqrt(v^T G(z_a) v)`` in blocks of edges: the same
+quantity up to float association.
 
 ``edge_lengths_riemannian`` takes preformed endpoint arrays instead (the
 legacy flat-latent codebook's call), through the same fused JVP.
@@ -67,10 +73,12 @@ def _decoder_affine_segments(model) -> Optional[List[Tuple[torch.Tensor,
     """Dense affine segments ``[(M, c), ...]`` of the spatial decoder on
     1x1 latent grids (NHWC-flattened rows, ReLU between segments, sigmoid
     applied by the caller), or None when the decoder is not expressible
-    this way (flat topology, group norm, non-f32 weights, other sizes)."""
+    this way (flat topology, group norm, non-f32 weights or compute,
+    other sizes)."""
     if (getattr(model, "topology", None) != "spatial"
             or model.norm_type not in ("batch", "none")
             or model.output_image_size not in (28, 32)
+            or getattr(model, "compute_dtype", torch.float32) != torch.float32
             or any(p.dtype != torch.float32 for p in model.parameters())):
         return None
     dec = model.decoder
@@ -219,13 +227,17 @@ def edge_lengths_riemannian_auto(decode_fn: Callable, z: np.ndarray,
 
     ``engine``: ``auto`` — the linearized matmul decoder (``mlp``) when the
     model supports it and passes its self-check, else the conv
-    ``edgewise`` engine; ``mlp`` / ``edgewise`` force one (``mlp`` raises
-    when the decoder cannot be linearized). The mlp engine's live buffers
-    are small, so at the default ``batch_size`` it takes 16384 edges per
-    pass; an explicit ``batch_size`` is kept.
+    ``edgewise`` engine; ``mlp`` / ``edgewise`` / ``nodal`` force one
+    (``mlp`` raises when the decoder cannot be linearized). The mlp
+    engine's live buffers are small, so at the default ``batch_size`` it
+    takes 16384 edges per pass; an explicit ``batch_size`` is kept.
     """
-    if engine not in ("auto", "mlp", "edgewise"):
+    if engine not in ("auto", "mlp", "edgewise", "nodal"):
         raise ValueError(f"unknown Riemannian engine {engine!r}")
+    if engine == "nodal":
+        return edge_lengths_riemannian_nodal(decode_fn, z, rows, cols,
+                                             batch_size=batch_size,
+                                             device=device)
     mlp_fn = None
     if engine in ("auto", "mlp"):
         mlp_fn = _mlp_decode_fn_cached(decode_fn)
@@ -241,3 +253,78 @@ def edge_lengths_riemannian_auto(decode_fn: Callable, z: np.ndarray,
             batch_size=mlp_bs, device=device)
     return edge_lengths_riemannian_indexed(
         decode_fn, z, rows, cols, batch_size=batch_size, device=device)
+
+
+def _pullback_chunk(decode_fn, zb: torch.Tensor) -> torch.Tensor:
+    """(B, D, D) metrics J^T J of the nodes ``zb`` (B, D): one JVP over
+    the nodes repeated D times against the tiled identity."""
+    b, d = zb.shape
+    basis = torch.eye(d, dtype=zb.dtype, device=zb.device).repeat(b, 1)
+    _, jt = torch.func.jvp(decode_fn, (zb.repeat_interleave(d, dim=0),),
+                           (basis,))
+    jt = jt.float().reshape(b, d, -1)
+    return torch.einsum("bip,bjp->bij", jt, jt)
+
+
+@torch.no_grad()
+def _pullback_metrics(decode_fn, z_t: torch.Tensor,
+                      batch_size: int) -> torch.Tensor:
+    n, d = z_t.shape
+    bs = max(1, min(batch_size // max(d, 1), n))
+    out = torch.empty((n, d, d), dtype=torch.float32, device=z_t.device)
+    for s in range(0, n, bs):
+        out[s:s + bs] = _pullback_chunk(decode_fn, z_t[s:s + bs])
+    return out
+
+
+def pullback_metrics(decode_fn: Callable, z: np.ndarray,
+                     batch_size: int = 1024, device=None) -> np.ndarray:
+    """(N, D, D) pullback metrics of all nodes; ``batch_size`` bounds the
+    decoder batch (``batch_size // D`` nodes a chunk). ``device`` defaults
+    to ``decode_fn.device``."""
+    dev = resolve_device(device if device is not None
+                         else getattr(decode_fn, "device", None))
+    z = np.asarray(z, np.float32)
+    n, d = z.shape
+    if n == 0:
+        return np.empty((0, d, d), np.float32)
+    z_t = torch.from_numpy(np.ascontiguousarray(z)).to(dev)
+    return _pullback_metrics(decode_fn, z_t, batch_size).cpu().numpy()
+
+
+def _lengths_from_metrics(G: torch.Tensor, z: torch.Tensor,
+                          rows: torch.Tensor, cols: torch.Tensor
+                          ) -> torch.Tensor:
+    v = z[cols] - z[rows]
+    qa = torch.einsum("ei,eij,ej->e", v, G[rows], v)
+    qb = torch.einsum("ei,eij,ej->e", v, G[cols], v)
+    return 0.5 * (torch.sqrt(torch.clamp_min(qa, 0.0))
+                  + torch.sqrt(torch.clamp_min(qb, 0.0)))
+
+
+def edge_lengths_riemannian_nodal(decode_fn: Callable, z: np.ndarray,
+                                  rows: np.ndarray, cols: np.ndarray,
+                                  batch_size: int = 1024,
+                                  edge_block: int = 1_048_576,
+                                  device=None) -> np.ndarray:
+    """Riemannian lengths of edges (rows[e], cols[e]) through per-node
+    pullback metrics (the edgewise quantity up to float association),
+    ``edge_block`` edges at a time; the metrics stay on the device.
+    ``device`` defaults to ``decode_fn.device``."""
+    dev = resolve_device(device if device is not None
+                         else getattr(decode_fn, "device", None))
+    z = np.asarray(z, np.float32)
+    rows = np.asarray(rows)
+    e = rows.shape[0]
+    z_t = torch.from_numpy(np.ascontiguousarray(z)).to(dev)
+    G = _pullback_metrics(decode_fn, z_t, batch_size)
+    if e == 0:
+        return np.empty((0,), np.float32)
+    r_t = torch.from_numpy(rows.astype(np.int64)).to(dev)
+    c_t = torch.from_numpy(np.asarray(cols).astype(np.int64)).to(dev)
+    out = torch.empty(e, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for s in range(0, e, edge_block):
+            out[s:s + edge_block] = _lengths_from_metrics(
+                G, z_t, r_t[s:s + edge_block], c_t[s:s + edge_block])
+    return out.cpu().numpy()

@@ -40,7 +40,7 @@ from ..models.transformer import (Transformer, cross_entropy_loss,
                                   transformer_init_)
 from ..utils.checkpoint import cpu_state_dict, save_checkpoint
 from .state import make_optimizer
-from .vae_engine import seeded_generator
+from .vae_engine import seeded_generator, to_device
 
 
 class TransformerEngine:
@@ -94,6 +94,26 @@ class TransformerEngine:
     def eval_step(self, x, targets, labels, mask) -> torch.Tensor:
         self.model.eval()
         return self.loss(x, targets, labels, mask)
+
+    def run_epoch(self, loader, train: bool, epoch: int) -> float:
+        """One epoch over the loader's host batches (``loader.epoch``), as
+        the JAX engine's per-batch ``run_epoch``: each batch moves to the
+        device, training draws its dropout from a generator of its own,
+        ``(seed + 1, epoch, 2, batch)``; the mean batch loss is summed on
+        the device and read once."""
+        total = None
+        n = 0
+        for i, batch in enumerate(loader.epoch(epoch)):
+            x, y, lab, mask = (to_device(a, self.device) for a in batch)
+            x, y, lab = x.long(), y.long(), lab.long()
+            if train:
+                loss = self.train_step(x, y, lab, mask, seeded_generator(
+                    self.device, self.seed + 1, epoch, 2, i))
+            else:
+                loss = self.eval_step(x, y, lab, mask)
+            total = loss if total is None else total + loss
+            n += 1
+        return float(total) / max(n, 1) if total is not None else 0.0
 
     def device_dataset(self, loader):
         """The loader's arrays on the device, padded to whole batches:

@@ -1,23 +1,41 @@
 """VAE training engine (flat and spatial topologies) — the port of
-``vqvae_tpu/train/vae_engine.py``, following its per-batch path
-(``run_epoch``).
+``vqvae_tpu/train/vae_engine.py``.
+
+``train`` takes JAX's two paths, chosen as JAX chooses them:
+
+- without augmentation (every preset), the device-resident epoch path:
+  each split is padded with zero rows to a whole number of batches and
+  kept on the engine's device with a validity mask (``device_dataset``);
+  a training epoch draws one permutation over the *padded* rows, so the
+  padding rows can land in any batch and enter its BatchNorm statistics;
+  each step gathers its batch by index, and when the loss is not finite
+  its gradients are replaced by zeros on the device (no host sync) before
+  the optimizer steps, as JAX's NaN/Inf guard does; the epoch's metrics
+  are the mean of the per-step (loss, recon, kl). Evaluation walks the
+  padded rows in order and sums loss, recon, kl, PSNR * n, SSIM * n and
+  n; the host divides by the step count and the split's size. Both
+  epochs' numbers come back in one host read.
+- with augmentation, the per-batch path (``run_epoch``) over the loader's
+  host batches, without the guard, as JAX's ``run_epoch``.
 
 Semantics kept from the JAX package: one optimizer step per padded, masked
-batch (the padded rows stay in the BatchNorm statistics); the loss uses a
+batch; BatchNorm statistics replaced on every step; the loss uses a
 reparameterized z in training and in evaluation; linear beta warm-up over
-``kl_anneal_epochs``; early stop on the validation loss; ``best.pt`` on
-every improvement and ``best.pt`` + ``latest.pt`` at the end; epoch
-metrics under the reference's names; then, from the best weights, the
-latent dump of both splits in dataset order (mu, logvar and z sampled from
-``seed + 2``) and a reconstruction grid.
+``kl_anneal_epochs``; early stop on the validation loss; the best state
+kept as a copy on the device and ``best.pt`` written at the rate one write
+sustains (every epoch while a write costs less than an epoch); ``best.pt``
++ ``latest.pt`` at the end; epoch metrics under the reference's names;
+then, from the best weights, the latent dump of both splits in dataset
+order (mu, logvar and z sampled from ``seed + 2``) and a reconstruction
+grid.
 
 Randomness comes from ``torch.Generator``s derived from the seed: the
 initial weights from a CPU generator, so every device starts from the same
 weights; the noise from generators on the engine's device, so a step
-draws it where it is used: training noise from ``(seed + 1, epoch, 0)``,
-evaluation noise from ``(seed + 1, epoch, 1)``. (The card's and the CPU's
-generators give different noise from one seed.) Metrics accumulate on the
-device and are read once per epoch.
+draws it where it is used: training from ``(seed + 1, epoch, 0)`` (the
+epoch path's permutation first, then the noise), evaluation noise from
+``(seed + 1, epoch, 1)``. (The card's and the CPU's generators give
+different streams from one seed, and both differ from JAX's.)
 """
 from __future__ import annotations
 
@@ -53,6 +71,40 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+def _device_copy(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A copy of ``model.state_dict()`` where the model lives."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _cpu(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.to("cpu", copy=True) for k, v in sd.items()}
+
+
+class _EpochTimer:
+    """Seconds of a span of work: CUDA events on the card (read after the
+    epoch's one host read, so timing adds no sync), the host clock on the
+    CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        self.t0 = self.t1 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.cuda:
+            self.end.record()
+        else:
+            self.t1 = time.perf_counter()
+
+    def seconds(self) -> float:
+        if self.cuda:
+            return self.start.elapsed_time(self.end) / 1e3
+        return self.t1 - self.t0
+
+
 class VAEEngine:
     def __init__(
         self,
@@ -81,8 +133,11 @@ class VAEEngine:
 
     # -- steps ---------------------------------------------------------------
     def train_step(self, images: torch.Tensor, mask: torch.Tensor,
-                   beta: float, generator: torch.Generator
-                   ) -> Dict[str, torch.Tensor]:
+                   beta: float, generator: torch.Generator,
+                   nan_guard: bool = False) -> Dict[str, torch.Tensor]:
+        """One optimizer step. ``nan_guard``: when the loss is not finite
+        the gradients become zeros (decided on the device) and the
+        optimizer still steps, as the JAX epoch path does."""
         self.model.train()
         x_logits, mu, logvar, _ = self.model(images, generator)
         total, recon, kl = self.model.loss(images, x_logits, mu, logvar,
@@ -90,6 +145,13 @@ class VAEEngine:
                                            step=self.step)
         self.opt.zero_grad()
         total.backward()
+        if nan_guard:
+            finite = torch.isfinite(total.detach())
+            with torch.no_grad():
+                for p in self.model.parameters():
+                    if p.grad is not None:
+                        p.grad = torch.where(finite, p.grad,
+                                             torch.zeros_like(p.grad))
         self.opt.step()
         self.step += 1
         return {"loss": total.detach(), "recon": recon.detach(),
@@ -111,6 +173,52 @@ class VAEEngine:
                 "psnr": psnr(x_rec, images, mask=mask),
                 "ssim": ssim_simple(x_rec, images, mask=mask),
                 "n": mask.sum()}
+
+    # -- device-resident epoch path -----------------------------------------
+    def device_dataset(self, loader: DataLoader, batch_size: int):
+        """The split zero-padded to a whole number of batches, on the
+        device: (images, mask, steps, padded rows)."""
+        images = loader.split.images
+        n = images.shape[0]
+        n_steps = max(1, (n + batch_size - 1) // batch_size)
+        n_pad = n_steps * batch_size
+        mask = np.zeros((n_pad,), np.float32)
+        mask[:n] = 1.0
+        if n_pad > n:
+            images = np.concatenate(
+                [images, np.zeros((n_pad - n, *images.shape[1:]),
+                                  images.dtype)])
+        return (to_device(images, self.device), to_device(mask, self.device),
+                n_steps, n_pad)
+
+    def train_epoch(self, data: torch.Tensor, mask_all: torch.Tensor,
+                    perm: torch.Tensor, beta: float, n_steps: int,
+                    batch_size: int, generator: torch.Generator
+                    ) -> torch.Tensor:
+        """Steps over ``perm`` (indices into the padded rows), guarded;
+        returns the mean per-step (loss, recon, kl) on the device."""
+        sums = torch.zeros(3, device=self.device)
+        for i in range(n_steps):
+            ib = perm[i * batch_size:(i + 1) * batch_size]
+            m = self.train_step(data[ib], mask_all[ib], beta, generator,
+                                nan_guard=True)
+            sums += torch.stack([m["loss"], m["recon"], m["kl"]])
+        return sums / n_steps
+
+    @torch.no_grad()
+    def eval_epoch(self, data: torch.Tensor, mask_all: torch.Tensor,
+                   beta: float, n_steps: int, batch_size: int,
+                   generator: torch.Generator) -> torch.Tensor:
+        """The padded rows in order; returns the device sums of (loss,
+        recon, kl, PSNR * n, SSIM * n, n), n the batch's real rows."""
+        sums = torch.zeros(6, device=self.device)
+        for i in range(n_steps):
+            sl = slice(i * batch_size, (i + 1) * batch_size)
+            m = self.eval_step(data[sl], mask_all[sl], beta, generator)
+            sums += torch.stack([m["loss"], m["recon"], m["kl"],
+                                 m["psnr"] * m["n"], m["ssim"] * m["n"],
+                                 m["n"]])
+        return sums
 
     # -- loops ---------------------------------------------------------------
     def run_epoch(self, loader: DataLoader, train: bool, epoch: int,
@@ -158,21 +266,52 @@ class VAEEngine:
         beta: float = 1.0,
     ) -> VAE:
         """Train; returns the model, holding the best epoch's weights (the
-        ones ``best.pt`` and the latent dumps carry)."""
+        ones ``best.pt`` and the latent dumps carry). The epoch path runs
+        unless the training loader augments."""
         if output_dir is not None:
             Path(output_dir).mkdir(parents=True, exist_ok=True)
         best_val = float("inf")
         no_improve = 0
         num_pixels = int(np.prod(train_loader.split.image_shape))
-        best_sd = cpu_state_dict(self.model)
+        best_sd = _device_copy(self.model)
         best_epoch = 0
+        save_stride, write_est, last_best_write = 1, 0.0, 0
+        fast = not train_loader.augment
+        if fast:
+            bs = train_loader.batch_size
+            tr_data, tr_mask, tr_steps, tr_pad = self.device_dataset(
+                train_loader, bs)
+            va_data, va_mask, va_steps, _ = self.device_dataset(val_loader,
+                                                                bs)
+            va_n = float(val_loader.num_examples)
         for epoch in range(1, num_epochs + 1):
             t_ep = time.perf_counter()
             cur_beta = (beta * min(1.0, epoch / kl_anneal_epochs)
                         if kl_anneal_epochs > 0 else beta)
-            tr = self.run_epoch(train_loader, True, epoch, cur_beta)
-            t_train = time.perf_counter() - t_ep
-            va = self.run_epoch(val_loader, False, epoch, cur_beta)
+            if fast:
+                timer = _EpochTimer(self.device)
+                gen = seeded_generator(self.device, self.seed + 1, epoch, 0)
+                perm = torch.randperm(tr_pad, generator=gen,
+                                      device=self.device)
+                tr_m = self.train_epoch(tr_data, tr_mask, perm, cur_beta,
+                                        tr_steps, bs, gen)
+                timer.stop()
+                va_sums = self.eval_epoch(
+                    va_data, va_mask, cur_beta, va_steps, bs,
+                    seeded_generator(self.device, self.seed + 1, epoch, 1))
+                vals = torch.cat([tr_m, va_sums]).tolist()  # one host read
+                t_train = timer.seconds()
+                tr = {"loss": vals[0], "recon": vals[1], "kl": vals[2],
+                      "steps": tr_steps}
+                va = {"loss": vals[3] / va_steps,
+                      "recon": vals[4] / va_steps,
+                      "kl": vals[5] / va_steps,
+                      "psnr": vals[6] / max(va_n, 1.0),
+                      "ssim": vals[7] / max(va_n, 1.0)}
+            else:
+                tr = self.run_epoch(train_loader, True, epoch, cur_beta)
+                t_train = time.perf_counter() - t_ep
+                va = self.run_epoch(val_loader, False, epoch, cur_beta)
             if logger is not None:
                 logger.log_metrics({
                     "train_loss": tr["loss"], "train_recon": tr["recon"],
@@ -192,15 +331,26 @@ class VAEEngine:
                   f"({time.perf_counter() - t_ep:.1f}s; {tr['steps']} steps "
                   f"in {t_train:.3f}s on {self.device})")
 
+            dt_epoch = time.perf_counter() - t_ep
             if va["loss"] < best_val:
                 best_val = va["loss"]
                 no_improve = 0
-                best_sd = cpu_state_dict(self.model)
+                best_sd = _device_copy(self.model)
                 best_epoch = epoch
-                if checkpoint_dir is not None:
+                # weights-only best.pt at the rate one write sustains,
+                # gated on epochs since the last write, as JAX's cadence
+                if checkpoint_dir is not None and (
+                        epoch - last_best_write >= save_stride
+                        or epoch == num_epochs):
+                    t_ck = time.perf_counter()
                     save_checkpoint(Path(checkpoint_dir) / "best.pt",
-                                    {"model_state_dict": best_sd,
+                                    {"model_state_dict": _cpu(best_sd),
                                      "epoch": epoch})
+                    last_best_write = epoch
+                    write_est = max(time.perf_counter() - t_ck,
+                                    0.7 * write_est)
+                    save_stride = max(1, min(
+                        25, int(write_est / max(dt_epoch, 1e-3))))
             else:
                 no_improve += 1
                 if early_stop and no_improve >= early_stop:
@@ -209,7 +359,8 @@ class VAEEngine:
 
         if checkpoint_dir is not None:
             ckpt = Path(checkpoint_dir)
-            save_checkpoint(ckpt / "best.pt", {"model_state_dict": best_sd,
+            save_checkpoint(ckpt / "best.pt", {"model_state_dict":
+                                               _cpu(best_sd),
                                                "epoch": best_epoch})
             save_checkpoint(ckpt / "latest.pt", {
                 "model_state_dict": cpu_state_dict(self.model),
