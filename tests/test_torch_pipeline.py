@@ -60,7 +60,11 @@ def pipeline_root(tmp_path_factory):
 def test_all_six_stages_write_their_artifacts(pipeline_root):
     root, timings, written = pipeline_root
     assert list(timings) == list(STAGES) + ["total"]
+    compiled = {k: written.pop(k) for k in ("programs_compiled",
+                                            "compile_seconds")}
     assert written == pytest.approx(timings)
+    assert compiled["programs_compiled"] >= 0
+    assert compiled["compile_seconds"] >= 0.0
     assert all(t > 0 for t in timings.values())
     exp = root / EXP
     run = exp / "vae" / "spatial_vae_fashionmnist"

@@ -17,8 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -29,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # name -> (argtypes, restype) of a library's C functions
 Signatures = Dict[str, Tuple[Sequence[type], Optional[type]]]
 _libs: Dict[Path, ctypes.CDLL] = {}
+# called with the seconds of each real build (``utils.profiling.CompileStats``)
+BUILD_LISTENERS: List[Callable[[float], None]] = []
 
 
 def compile_shared(src: Path, cmd: Sequence[str]) -> Tuple[Path, str]:
@@ -43,14 +46,18 @@ def compile_shared(src: Path, cmd: Sequence[str]) -> Tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run([*cmd, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"building {src.name} failed ({' '.join(cmd)}):\n"
             f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
+    for listener in BUILD_LISTENERS:
+        listener(seconds)
     return out, proc.stdout + proc.stderr
 
 

@@ -11,7 +11,11 @@ is in ``NON_CRITICAL`` (the quality gates and the final evaluation, as the
 reference's ``critical=False`` steps): those print the traceback and go
 on, so a caller that needs their outputs checks the files. Per-stage wall
 seconds are returned and, when ``VQVAE_TPU_TIMINGS_PATH`` is set, written
-there as JSON.
+there as JSON with the run's ``programs_compiled`` and ``compile_seconds``
+(the port's native builds, ``utils.profiling.CompileStats``), which each
+stage's line also prints. Each stage runs inside ``profile_trace(stage)``:
+with ``VQVAE_TPU_PROFILE_DIR`` set, a ``torch.profiler`` Chrome trace of
+the stage lands in ``<dir>/<stage>/trace.json``.
 
 The codebook stage dispatches on the config's ``builder``: ``spatial``
 (``build_codebook.py``), or ``legacy`` / ``legacy_riemannian``
@@ -39,6 +43,7 @@ from typing import Dict, Iterable, Optional
 
 from ..config import Config, load_config
 from ..device import resolve_device
+from ..utils.profiling import CompileStats, profile_trace
 
 STAGES = ("vae", "codebook", "quality", "transformer", "generate", "evaluate")
 NON_CRITICAL = {"quality", "evaluate"}
@@ -117,6 +122,8 @@ def run_pipeline(
     skip = set(skip)
     timings: Dict[str, float] = {}
     t_total = time.perf_counter()
+    compiles = CompileStats.install()
+    c_total = compiles.snapshot()
     prev_cwd = os.getcwd()
     os.chdir(root_dir)
     try:
@@ -130,8 +137,10 @@ def run_pipeline(
                 continue
             print(f"[pipeline] === stage: {stage} ===")
             t0 = time.perf_counter()
+            c0 = compiles.snapshot()
             try:
-                _run_stage(stage, cfg, dev)
+                with profile_trace(stage):
+                    _run_stage(stage, cfg, dev)
             except Exception:
                 traceback.print_exc()
                 if stage not in NON_CRITICAL:
@@ -139,17 +148,25 @@ def run_pipeline(
                 print(f"[pipeline] non-critical stage {stage} failed; "
                       f"continuing")
             timings[stage] = time.perf_counter() - t0
-            print(f"[pipeline] {stage} done in {timings[stage]:.1f}s")
+            dc = compiles.delta(c0)
+            print(f"[pipeline] {stage} done in {timings[stage]:.1f}s "
+                  f"({dc['programs']} programs compiled, "
+                  f"{dc['compile_seconds']}s compiling)")
     finally:
         os.chdir(prev_cwd)
 
     timings["total"] = time.perf_counter() - t_total
+    dt = compiles.delta(c_total)
     print(f"[pipeline] TOTAL: {timings['total']:.1f}s "
-          f"({ {k: round(v, 1) for k, v in timings.items()} })")
+          f"({ {k: round(v, 1) for k, v in timings.items()} }); "
+          f"{dt['programs']} programs compiled, {dt['compile_seconds']}s "
+          f"compiling")
     timings_path = os.environ.get("VQVAE_TPU_TIMINGS_PATH")
     if timings_path:
         with open(timings_path, "w") as f:
-            json.dump(timings, f, indent=2)
+            json.dump({**timings, "programs_compiled": dt["programs"],
+                       "compile_seconds": dt["compile_seconds"]}, f,
+                      indent=2)
     return timings
 
 

@@ -1,4 +1,5 @@
 from .assign import nearest_codes, nearest_codes_reference
+from .ivf import knn_search_ivf
 from .ell import BucketedGraph, multi_source_shortest_paths_ell
 from .graph import (analyze_graph_connectivity, build_knn_graph,
                     build_knn_graph_auto, largest_connected_component,
@@ -6,6 +7,7 @@ from .graph import (analyze_graph_connectivity, build_knn_graph,
 from .kmedoids import (assign_points_to_medoids, compute_quantization_error,
                        fit_kmedoids, fit_kmedoids_with_connectivity_check,
                        kpp_initialization, kpp_parallel_initialization)
+from .kmeans_euclidean import fit_kmeans
 from .knn import knn_search
 from .knn_select import fused_select, fused_select_reference
 from .riemannian import (build_mlp_decode_fn, edge_lengths_riemannian,
@@ -22,6 +24,8 @@ from . import geo_compat
 __all__ = [
     "nearest_codes",
     "nearest_codes_reference",
+    "knn_search_ivf",
+    "fit_kmeans",
     "BucketedGraph",
     "multi_source_shortest_paths_ell",
     "EdgeList",

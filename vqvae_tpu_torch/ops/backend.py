@@ -31,11 +31,20 @@ def _host_threads() -> int:
         return os.cpu_count() or 1
 
 
-# below this K*E work estimate the threaded host Dijkstra is taken over the
-# device relaxation. The constant was calibrated on a TPU host against an
-# 8-thread native Dijkstra and scales with the cores this host exposes; the
-# GPU's own host/device crossover is still to be measured (ROADMAP.md).
-HOST_WORK_THRESHOLD = 1.25e8 * _host_threads()
+# below this K*E work estimate (sources x stored edges) the threaded host
+# Dijkstra is taken over the device relaxation. Measured with
+# ``tools/bench_fit`` on an NVIDIA H100 80GB HBM3 at 700.00 W whose host
+# exposes 8 threads (clustered-latent kNN graphs, k = 10 union, 1 to 512
+# sources; the device graph built once, as k-medoids reuses it): the
+# device's relaxation overtakes the host at 8.9e4 work on 1,024 nodes
+# (15 k edges), 4.6e6 on 4,096 and 2.1e6 on 16,384 nodes (0.26 M edges),
+# and wins from a single source on 65,536 and 262,144 nodes (1.0 M and
+# 4.2 M edges); 8 threads took 1/4 to 1/12 of one thread's time from 8
+# sources (16,384 to 262,144 nodes). So 2.5e5 a thread (2e6 on that host) sits in the measured
+# band and scales with the cores this host exposes. A lone call from a
+# CSR matrix also builds the device graph (0.05 s at 1.0 M edges, 0.25 s
+# at 4.2 M), where the host keeps winning up to 22-85 sources.
+HOST_WORK_THRESHOLD = 2.5e5 * _host_threads()
 
 
 def _native_ok() -> bool:
