@@ -25,9 +25,17 @@ quantity up to float association.
 
 ``edge_lengths_riemannian`` takes preformed endpoint arrays instead (the
 legacy flat-latent codebook's call), through the same fused JVP.
+
+Accounting: every ``edge_lengths_riemannian_auto`` call appends one record
+to ``RIEM_STATS`` (JAX's keys: the engine, the decoder JVP samples, the
+analytic JVP FLOPs per sample, the wall seconds); the linearized decoder
+carries its ``jvp_flops_per_sample`` and ``conv_decoder_jvp_flops_per_sample``
+gives the conv decoder's. The nodal engine, which JAX does not record,
+counts each node's D basis JVPs as its samples.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -36,6 +44,10 @@ import torch
 from ..device import resolve_device
 
 _AUTO_DEFAULT_BATCH = 1024
+
+# one record per edge_lengths_riemannian_auto call: engine, samples (decoder
+# JVP rows), analytic JVP FLOPs per sample (None when unknown), seconds
+RIEM_STATS: list = []
 
 
 def _model_device(model) -> torch.device:
@@ -146,7 +158,9 @@ def build_mlp_decode_fn(model) -> Optional[Callable]:
     """Linearized spatial decoder z (B, D) -> flattened sigmoid image via
     dense f32 matmuls (the same map as ``make_decoder_image_fn`` up to
     float association), or None when the decoder cannot be linearized or
-    the linearization fails its self-check."""
+    the linearization fails its self-check. The model is put in eval mode
+    first: the segments hold its running norm statistics, as JAX's do."""
+    model.eval()
     segs = _decoder_affine_segments(model)
     if segs is None or not _verify_affine_segments(model, segs):
         return None
@@ -155,7 +169,32 @@ def build_mlp_decode_fn(model) -> Optional[Callable]:
         return _mlp_forward(segs, z)
 
     decode_fn.device = _model_device(model)
+    # primal and tangent: two multiply-adds per matrix entry each
+    decode_fn.jvp_flops_per_sample = float(
+        sum(4 * M.shape[0] * M.shape[1] for M, _ in segs))
     return decode_fn
+
+
+def conv_decoder_jvp_flops_per_sample(model) -> Optional[float]:
+    """Analytic JVP FLOPs per sample of the conv spatial decoder on a 1x1
+    latent grid: the 1x1 ``conv_in``, then each 4x4 stride-2 transposed
+    conv at out_H * out_W * 16 * Cin * Cout multiply-adds (the grid goes
+    1 -> 2 -> 4, then the head to 8, or to 2 * 4 - 4 = 4 at 28 px), two
+    FLOPs a multiply-add, primal and tangent. None for other decoders."""
+    if (getattr(model, "topology", None) != "spatial"
+            or model.output_image_size not in (28, 32)):
+        return None
+    chs = tuple(model.dec_channels)
+    macs = float(model.latent_dim * chs[0])
+    size = 1
+    dims = list(chs) + [model.in_channels]
+    for i in range(len(chs)):
+        if i == len(chs) - 1 and model.output_image_size == 28:
+            size = 2 * size - 4  # the 28-px head's padding: out = 2 in - 4
+        else:
+            size = 2 * size
+        macs += size * size * 16 * dims[i] * dims[i + 1]
+    return 4.0 * macs
 
 
 def _mlp_decode_fn_cached(decode_fn) -> Optional[Callable]:
@@ -234,10 +273,17 @@ def edge_lengths_riemannian_auto(decode_fn: Callable, z: np.ndarray,
     """
     if engine not in ("auto", "mlp", "edgewise", "nodal"):
         raise ValueError(f"unknown Riemannian engine {engine!r}")
+    model = getattr(decode_fn, "model", None)
+    conv_flops = (conv_decoder_jvp_flops_per_sample(model)
+                  if model is not None else None)
     if engine == "nodal":
-        return edge_lengths_riemannian_nodal(decode_fn, z, rows, cols,
-                                             batch_size=batch_size,
-                                             device=device)
+        t0 = time.perf_counter()
+        out = edge_lengths_riemannian_nodal(decode_fn, z, rows, cols,
+                                            batch_size=batch_size,
+                                            device=device)
+        d = int(np.shape(z)[-1])
+        _record("nodal", int(np.shape(z)[0]) * d, conv_flops, t0)
+        return out
     mlp_fn = None
     if engine in ("auto", "mlp"):
         mlp_fn = _mlp_decode_fn_cached(decode_fn)
@@ -246,13 +292,25 @@ def edge_lengths_riemannian_auto(decode_fn: Callable, z: np.ndarray,
                 "engine=mlp: decoder cannot be linearized (needs spatial "
                 "topology, batch/none norm, f32 weights)")
     z = np.asarray(z, np.float32)
+    t0 = time.perf_counter()  # the pass alone, as JAX times it
     if mlp_fn is not None:
         mlp_bs = 16384 if batch_size == _AUTO_DEFAULT_BATCH else batch_size
-        return edge_lengths_riemannian_indexed(
+        out = edge_lengths_riemannian_indexed(
             mlp_fn, z.reshape(z.shape[0], -1), rows, cols,
             batch_size=mlp_bs, device=device)
-    return edge_lengths_riemannian_indexed(
+        _record("mlp", 2 * len(rows), mlp_fn.jvp_flops_per_sample, t0)
+        return out
+    out = edge_lengths_riemannian_indexed(
         decode_fn, z, rows, cols, batch_size=batch_size, device=device)
+    _record("edgewise", 2 * len(rows), conv_flops, t0)
+    return out
+
+
+def _record(engine: str, samples: int, flops: Optional[float],
+            t0: float) -> None:
+    RIEM_STATS.append({"engine": engine, "samples": int(samples),
+                       "jvp_flops_per_sample": flops,
+                       "seconds": time.perf_counter() - t0})
 
 
 def _pullback_chunk(decode_fn, zb: torch.Tensor) -> torch.Tensor:
