@@ -207,11 +207,39 @@ Phases, each printed as it ends:
       ``knn_experiments``' ``run`` (phase 6's latents) and
       ``train_legacy_vae`` (1 epoch at ``configs/vae.yaml``'s widths on
       4,096 synthetic images);
-18. one JSON line of per-kernel numbers, then the device line.
+18. the device mesh (``vqvae_tpu_torch/parallel``), each part's ranks
+   started as subprocesses of this script (``--phase18-rank``, with
+   ``torchrun``'s environment; a rank that fails fails the run):
+   a. one rank in an NCCL group on phase 6's 65,536-node graph: the
+      codebook stage's steps (kNN, lengths, LCC, k-medoids, 64-source
+      distances) with the group's mesh equal bit for bit to the same
+      steps without a group;
+   b. two gloo ranks sharing ``cuda:0`` on phase 4's 983,040 nodes: the
+      sharded kNN against one process's (rows may differ only at
+      near-ties; counted), lengths on phase 4's LCC graph within rtol
+      1e-6 of its stored ones, k-medoids on it equal to phase 4's medoids,
+      assignments and QE, 64-source distances equal to one process's; K1
+      launches per rank;
+   c. five data-parallel steps of the VAE (batch 256, BatchNorm, the epoch
+      path), the transformer (batch 256, dropout 0) and the baseline
+      (batch 128: EMA, bank, perplexity) at full width, two ranks on
+      halves of each batch against one process on the whole batch: mean
+      losses within 1e-5 relative, parameters within 2 lr a step (phase
+      13's limits), the baseline's codebook and bank within rtol 1e-5 or
+      2e-5 of their largest values; a baseline latent may take another
+      code at a near-tie (distances within 1e-5 of |z|^2 + |e|^2), and
+      then only the steps before it are held to the limits;
+   d. ``run_pipeline`` at world size 2 on the spatial preset at phase 6's
+      depth (vae 1 epoch, codebook on 65,536 nodes, transformer 1 epoch):
+      every file written by rank 0 alone (an audit hook), codes -1 only
+      off the LCC, finite losses; stage seconds logged. Two ranks on one
+      card are timed, not claimed faster;
+19. one JSON line of per-kernel numbers, then the device line.
 """
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -3073,7 +3101,861 @@ def phase_cifar(work: Path, exp6: Path, cut6: Path) -> dict:
     return out
 
 
+# -- phase 18: the device mesh (torch.distributed) --------------------------
+
+P18_RANKS = 2            # ranks of 18b-d, both on cuda:0 under gloo
+P18_SOURCES = 64         # sources of the distance check
+P18_VAE_IMAGES = 1200    # 18c: 5 batches of 256, the last padded
+P18_STEPS = 5
+P18_TIMEOUT = 600
+P18_STATE_RTOL = 1e-5    # 18c: EMA codebook, bank, BatchNorm statistics
+P18_STATE_ATOL = 2e-5    # ... and this share of the tensor's largest value
+P18_GRAD_GAP = 1e-3      # 18c: |g - g_one| / |g_one| over all gradients
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(world: int, spec: dict, work: Path, label: str) -> list:
+    """Run ``world`` ranks of this script's phase-18 worker (the env of
+    ``torchrun``: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT); each
+    writes ``<work>/<label>_rank<r>.json``. A rank that exits non-zero
+    fails the run; every rank is stopped before this returns."""
+    work.mkdir(parents=True, exist_ok=True)
+    spec_path = work / f"{label}_spec.json"
+    spec_path.write_text(json.dumps({**spec, "label": label,
+                                     "work": str(work)}))
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTHONPATH=str(ROOT))
+        logs.append(open(work / f"{label}_rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--phase18-rank",
+             str(spec_path)], env=env, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    t_end = time.monotonic() + P18_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > t_end:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+        for f in logs:
+            f.close()
+    for rank, p in enumerate(procs):
+        text = (work / f"{label}_rank{rank}.log").read_text()
+        for line in text.splitlines():
+            if line.startswith("[chip_smoke]"):
+                print(f"  rank {rank}: {line}", flush=True)
+        if p.returncode != 0:
+            print(text[-6000:], file=sys.stderr, flush=True)
+            fail(f"phase 18 {label}: rank {rank} of {world} exited with "
+                 f"{p.returncode}")
+    return [json.loads((work / f"{label}_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _p18_decoder(ckpt: Path, dev):
+    """The spatial decoder of a VAE checkpoint, configured as the codebook
+    stage configures it."""
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.ops.riemannian import make_decoder_image_fn
+    from vqvae_tpu_torch.utils.checkpoint import load_vae_from_checkpoint
+
+    vae_cfg = dict(load_config(ROOT / PRESET / "codebook.yaml")["vae"])
+    vae_cfg.setdefault("topology", "spatial")
+    vae_cfg["enc_channels"] = tuple(vae_cfg["enc_channels"])
+    vae_cfg["dec_channels"] = tuple(vae_cfg["dec_channels"])
+    model = load_vae_from_checkpoint(ckpt, vae_cfg, device=dev)
+    return make_decoder_image_fn(model, model.topology)
+
+
+def _p18_codebook_steps(z_flat, decode_fn, mesh, dev) -> tuple:
+    """The codebook stage's steps as ``build_codebook_main`` runs them
+    (k 20 union approx, lengths at batch 4096, LCC, K 512 kpp_parallel
+    seed 42), then the distances from the first medoids; returns (arrays,
+    seconds, K1/K2 launches)."""
+    import numpy as np
+
+    from vqvae_tpu_torch.ops.backend import multi_source_distances
+    from vqvae_tpu_torch.ops.ell import BucketedGraph
+    from vqvae_tpu_torch.ops.graph import (build_knn_graph,
+                                           largest_connected_component,
+                                           symmetric_csr_from_edges)
+    from vqvae_tpu_torch.ops.kmedoids import fit_kmedoids
+    from vqvae_tpu_torch.ops.knn_select import fused_select
+    from vqvae_tpu_torch.ops.riemannian import edge_lengths_riemannian_auto
+
+    secs = {}
+    t0 = time.perf_counter()
+    fused_select.launches = 0
+    W_eu, info = build_knn_graph(z_flat, k=20, mode="connectivity",
+                                 sym="union", approx=True, device=dev,
+                                 mesh=mesh)
+    launches = fused_select.launches
+    secs["knn"] = time.perf_counter() - t0
+    rows, cols = W_eu.nonzero()
+    keep = rows < cols
+    rows, cols = rows[keep], cols[keep]
+    t0 = time.perf_counter()
+    lengths = edge_lengths_riemannian_auto(decode_fn, z_flat, rows, cols,
+                                           batch_size=4096, device=dev,
+                                           mesh=mesh)
+    secs["riemannian"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    W_geo = symmetric_csr_from_edges(rows, cols, lengths, W_eu.shape[0])
+    mask = largest_connected_component(W_geo)
+    W_lcc = W_geo[mask][:, mask].tocsr()
+    secs["lcc"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    med, asg, qe = fit_kmedoids(W_lcc, K=512, init="kpp_parallel", seed=42,
+                                kpp_rounds=4, device=dev,
+                                assume_symmetric=True, mesh=mesh)
+    secs["kmedoids"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bg = BucketedGraph.from_csr(W_lcc, assume_symmetric=True, device=dev)
+    dist = multi_source_distances(bg, med[:P18_SOURCES], "device", mesh=mesh)
+    secs["distances"] = time.perf_counter() - t0
+    return ({"indices": info["indices"], "lengths": lengths, "lcc": mask,
+             "medoids": med, "assign": asg, "qe": np.array(qe),
+             "distances": dist}, secs, launches)
+
+
+def _p18a_rank(spec: dict, dev) -> dict:
+    """18a: the sharded codebook steps through a one-rank NCCL group
+    against the same steps without a group, bit for bit."""
+    import numpy as np
+
+    from vqvae_tpu_torch.parallel import init_distributed
+    from vqvae_tpu_torch.utils.latents import flatten_spatial, load_latents
+
+    z_flat = flatten_spatial(load_latents(spec["latents"])["z"])
+    decode_fn = _p18_decoder(Path(spec["vae"]), dev)
+    plain, s_plain, k_plain = _p18_codebook_steps(z_flat, decode_fn, None,
+                                                  dev)
+    mesh = init_distributed("nccl", device=dev)
+    if not (mesh.distributed and mesh.world_size == 1
+            and mesh.backend == "nccl"):
+        fail(f"18a: expected a one-rank NCCL group, got {mesh}")
+    sharded, s_mesh, k_mesh = _p18_codebook_steps(z_flat, decode_fn, mesh,
+                                                  dev)
+    differ = [k for k in plain
+              if not np.array_equal(plain[k], sharded[k])]
+    return {"nodes": int(z_flat.shape[0]), "differ": differ,
+            "seconds_plain": s_plain, "seconds_mesh": s_mesh,
+            "k1_plain": k_plain, "k1_mesh": k_mesh,
+            "qe": float(sharded["qe"]),
+            "lcc": int(sharded["lcc"].sum())}
+
+
+def _near_tie_rows(i_a, d_a, i_b, d_b, rel: float = 1e-5) -> tuple:
+    """(rows whose neighbour sets differ, rows among them whose differing
+    neighbours lie within ``rel`` of the row's k-th distance)."""
+    import numpy as np
+
+    differ = np.nonzero((i_a != i_b).any(1))[0]
+    ties = 0
+    for r in differ:
+        kth = max(float(d_a[r, -1]), float(d_b[r, -1]))
+        only = set(i_a[r]) ^ set(i_b[r])
+        vals = [float(d[r][i[r] == c][0]) for c in only
+                for i, d in ((i_a, d_a), (i_b, d_b)) if (i[r] == c).any()]
+        ties += all(abs(v - kth) <= rel * max(kth, 1e-30) for v in vals)
+    return int(len(differ)), int(ties)
+
+
+def _p18b(spec: dict, mesh, dev) -> dict:
+    """18b: the codebook stage's steps sharded over the ranks, each from
+    phase 4's inputs: kNN (against one process's search on rank 0),
+    lengths on phase 4's LCC graph (against its stored lengths), k-medoids
+    on it (against phase 4's medoids, codes and QE) and the distances from
+    64 medoids (against one process's relaxation on rank 0)."""
+    import numpy as np
+    from scipy import sparse
+
+    from vqvae_tpu_torch.cli import load_codebook
+    from vqvae_tpu_torch.ops.backend import multi_source_distances
+    from vqvae_tpu_torch.ops.ell import BucketedGraph
+    from vqvae_tpu_torch.ops.kmedoids import fit_kmedoids
+    from vqvae_tpu_torch.ops.knn import knn_search
+    from vqvae_tpu_torch.ops.knn_select import fused_select
+    from vqvae_tpu_torch.ops.riemannian import edge_lengths_riemannian_auto
+    from vqvae_tpu_torch.parallel import HOST_COPIES, barrier
+    from vqvae_tpu_torch.utils.latents import flatten_spatial, load_latents
+
+    z_flat = flatten_spatial(load_latents(spec["b_latents"])["z"])
+    decode_fn = _p18_decoder(Path(spec["b_vae"]), dev)
+    out, secs = {"nodes": int(z_flat.shape[0])}, {}
+    copies0 = dict(HOST_COPIES)
+
+    barrier(mesh)
+    t0 = time.perf_counter()
+    fused_select.launches = 0
+    d_sh, i_sh = knn_search(z_flat, 21, approx=True, device=dev, mesh=mesh)
+    out["k1_launches"] = fused_select.launches
+    secs["knn"] = time.perf_counter() - t0
+    if mesh.rank == 0:
+        d_1, i_1 = knn_search(z_flat, 21, approx=True, device=dev)
+        out["knn_rows_differ"], out["knn_near_ties"] = _near_tie_rows(
+            i_sh, d_sh, i_1, d_1)
+    del d_sh, i_sh
+
+    cb = Path(spec["b_codebook"])
+    W_lcc = sparse.load_npz(cb / "knn_graph_geodesic.npz").tocsr()
+    codes = np.load(cb / "codes.npy").reshape(-1)
+    z_lcc = z_flat[codes >= 0]
+    tri = sparse.triu(W_lcc, 1).tocoo()
+    barrier(mesh)
+    t0 = time.perf_counter()
+    lengths = edge_lengths_riemannian_auto(decode_fn, z_lcc, tri.row,
+                                           tri.col, batch_size=4096,
+                                           device=dev, mesh=mesh)
+    secs["riemannian"] = time.perf_counter() - t0
+    rel = np.abs(lengths - tri.data) / np.maximum(np.abs(tri.data), 1e-30)
+    out["edges"] = int(len(lengths))
+    out["lengths_max_rel"] = float(rel.max())
+    out["lengths_over_1e-6"] = int((rel > 1e-6).sum())
+
+    barrier(mesh)
+    t0 = time.perf_counter()
+    med, asg, qe = fit_kmedoids(W_lcc, K=512, init="kpp_parallel", seed=42,
+                                kpp_rounds=4, device=dev,
+                                assume_symmetric=True, mesh=mesh)
+    secs["kmedoids"] = time.perf_counter() - t0
+    ref = load_codebook(cb)
+    out["medoids_equal"] = bool(np.array_equal(med,
+                                               ref["medoid_indices"]))
+    out["assign_equal"] = bool(np.array_equal(asg, codes[codes >= 0]))
+    out["qe"], out["qe_ref"] = float(qe), float(
+        ref["config"]["quantization_error"])
+
+    bg = BucketedGraph.from_csr(W_lcc, assume_symmetric=True, device=dev)
+    barrier(mesh)
+    t0 = time.perf_counter()
+    dist = multi_source_distances(bg, med[:P18_SOURCES], "device",
+                                  mesh=mesh)
+    secs["distances"] = time.perf_counter() - t0
+    if mesh.rank == 0:
+        out["distances_equal"] = bool(np.array_equal(
+            dist, multi_source_distances(bg, med[:P18_SOURCES], "device")))
+    out["seconds"] = secs
+    out["host_copies"] = {k: HOST_COPIES[k] - copies0[k]
+                          for k in HOST_COPIES}
+    return out
+
+
+def _p18_excess(got, ref, rtol: float) -> float:
+    """How far ``got`` lies beyond rtol of ``ref``, as a share of ref's
+    largest value (<= 0: within rtol everywhere; inf: not finite)."""
+    if not bool(got.isfinite().all()):
+        return float("inf")
+    top = max(float(ref.abs().max()), 1e-30) if ref.numel() else 1.0
+    return float(((got - ref).abs() - rtol * ref.abs()).max()) / top \
+        if ref.numel() else 0.0
+
+
+def _p18_grad_gap(got: dict, ref: dict) -> float:
+    """|got - ref| / |ref| over every parameter's gradient at once (the
+    Euclidean norms of the concatenated gradients)."""
+    num = sum(float(((got[k] - w).double() ** 2).sum())
+              for k, w in ref.items())
+    den = sum(float((w.double() ** 2).sum()) for w in ref.values())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _p18_state_check(got: dict, ref: dict, lr: float, params: set) -> tuple:
+    """(parameters apart at most, in lr; buffers' largest excess over
+    P18_STATE_RTOL as a share of their largest value)."""
+    worst, buf = 0.0, 0.0
+    for key, r in ref.items():
+        g = got[key]
+        if not r.is_floating_point():
+            continue
+        if key in params:
+            worst = max(worst, float((g - r).abs().max()) / lr
+                        if bool(g.isfinite().all()) else float("inf"))
+        else:
+            buf = max(buf, _p18_excess(g, r, P18_STATE_RTOL))
+    return worst, buf
+
+
+def _p18c(spec: dict, mesh, dev) -> dict:
+    """18c: data-parallel steps of each model at full width, the ranks on
+    halves of each batch, against one process on the whole batch (rank
+    0, no group). Each of the P18_STEPS data-parallel steps starts from
+    the one process's state before that step (weights, optimizer state,
+    BatchNorm statistics; the baseline's codebook and bank) with the same
+    batch and generators, so every step is held on its own. Limits per
+    step: the losses and metrics within 1e-5 relative; the gradients
+    after the step (summed over ranks, clipped), all parameters' together,
+    within P18_GRAD_GAP of one process's in Euclidean norm; the EMA
+    codebook, the bank and the BatchNorm statistics within rtol
+    P18_STATE_RTOL or P18_STATE_ATOL of the tensor's largest value; the
+    parameters at most 2 lr apart (one Adam step). The baseline's
+    codes may differ at near-ties (distances within 1e-5 of their terms'
+    scale |z|^2 + |e|^2, at most 1e-3 of the step's latents), counted per
+    step: its codebook is then held against one process's EMA update from
+    the same state on the data-parallel codes, and its perplexity and
+    usage against those codes' histogram. Controls that must fail: one
+    step with the gradients left unsummed (each model), the EMA counts
+    and sums left un-reduced, and the bank filled from the local rows."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import vqvae_tpu_torch.models.vqvae_baseline as vqvae_baseline_mod
+    import vqvae_tpu_torch.train.transformer_engine as tf_engine_mod
+    import vqvae_tpu_torch.train.vae_engine as vae_engine_mod
+    import vqvae_tpu_torch.train.vqvae_engine as vq_engine_mod
+    from vqvae_tpu_torch.cli.train_baseline_vqvae import baseline_model
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.data import load_dataset
+    from vqvae_tpu_torch.models import VAE, flax_init_
+    from vqvae_tpu_torch.models.transformer import (Transformer,
+                                                    transformer_init_)
+    from vqvae_tpu_torch.models.vqvae_baseline import (CodebookState,
+                                                       ema_update, quantize)
+    from vqvae_tpu_torch.parallel import (HOST_COPIES, all_gather_rows,
+                                          barrier, get_mesh)
+    from vqvae_tpu_torch.train import (TransformerEngine, VAEEngine,
+                                       VQVAEEngine)
+    from vqvae_tpu_torch.train.vae_engine import seeded_generator
+
+    one = get_mesh(1)
+    work = Path(spec["work"]) / "c_states"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"seconds": {}, "seconds_one": {}}
+    copies0 = dict(HOST_COPIES)
+
+    def cpu(t):
+        return t.detach().cpu().clone()
+
+    def grads_of(eng):
+        return {k: cpu(p.grad) for k, p in eng.model.named_parameters()
+                if p.grad is not None}
+
+    def run(kind, make, step_fn):
+        """Rank 0 runs one process's P18_STEPS steps and keeps the state
+        before each; every rank then takes each data-parallel step from
+        that state. Returns (one process's results, the ranks' results,
+        the data-parallel engine, the states)."""
+        ref, states = [], []
+        if mesh.rank == 0:
+            eng = make(one)
+            extra = step_fn.initial(eng)
+            t0 = time.perf_counter()
+            for s in range(P18_STEPS):
+                states.append({"model": copy.deepcopy(eng.model.state_dict()),
+                               "opt": copy.deepcopy(eng.opt.state_dict()),
+                               "step": getattr(eng, "step", 0), **extra})
+                res, extra = step_fn(eng, s, states[-1])
+                ref.append(res)
+            out["seconds_one"][kind] = time.perf_counter() - t0
+            torch.save(states, work / f"{kind}.pt")
+        barrier(mesh)
+        states = torch.load(work / f"{kind}.pt", map_location=dev,
+                            weights_only=False)
+        eng = make(mesh)
+        got, secs = [], 0.0
+        for s in range(P18_STEPS):
+            _restore(eng, states[s])
+            t0 = time.perf_counter()
+            got.append(step_fn(eng, s, states[s])[0])
+            secs += time.perf_counter() - t0
+        out["seconds"][kind] = secs
+        return ref, got, eng, states
+
+    def _restore(eng, st):
+        eng.model.load_state_dict(st["model"])
+        eng.opt.load_state_dict(copy.deepcopy(st["opt"]))
+        if hasattr(eng, "step"):
+            eng.step = st["step"]
+
+    def control(mod, name, value, eng, st, step_fn):
+        """One data-parallel step 0 with ``mod.name`` replaced."""
+        orig = getattr(mod, name)
+        setattr(mod, name, value)
+        try:
+            _restore(eng, st)
+            return step_fn(eng, 0, st)[0]
+        finally:
+            setattr(mod, name, orig)
+
+    def unsummed(params, m):
+        return None
+
+    # -- the VAE: the epoch path's steps over a fixed permutation --------
+    cfg = load_config(ROOT / PRESET / "vae.yaml")
+    arch = dict(cfg["model"])
+    arch.pop("beta")
+    bs, lr = int(cfg["data"]["batch_size"]), float(cfg["lr"])
+    model = flax_init_(VAE(**arch), seeded_generator("cpu", 42))
+    split = load_dataset("fashionmnist", root="no-such-dir", train=True,
+                         synthetic_size=P18_VAE_IMAGES, seed=42)
+    loader = SimpleNamespace(split=SimpleNamespace(images=split.images))
+    vae_params = {k for k, _ in model.named_parameters()}
+    vdata = {}
+
+    def make_vae(m):
+        eng = VAEEngine(copy.deepcopy(model), lr=lr,
+                        weight_decay=float(cfg["weight_decay"]),
+                        grad_clip_max_norm=float(cfg["grad_clip_max_norm"]),
+                        seed=42, device=dev, mesh=m)
+        if not vdata:
+            data, mask, _, n_pad = eng.device_dataset(loader, bs)
+            perm = torch.randperm(n_pad, generator=torch.Generator()
+                                  .manual_seed(42)).to(dev)
+            vdata.update(data=data, mask=mask, perm=perm)
+        return eng
+
+    def vae_step(eng, s, st):
+        mine = eng.local_rows(bs)
+        ib = vdata["perm"][s * bs:(s + 1) * bs][mine]
+        m = eng.train_step(vdata["data"][ib], vdata["mask"][ib], 1.0,
+                           seeded_generator(dev, 42, 1, s), nan_guard=True,
+                           noise_rows=(mine.start, bs))
+        return {"loss": cpu(torch.stack([m["loss"], m["recon"], m["kl"]])),
+                "grads": grads_of(eng),
+                "state": {k: cpu(v) for k, v in
+                          eng.model.state_dict().items()}}, {}
+    vae_step.initial = lambda eng: {}
+
+    # -- the transformer: dropout 0, a padded tail -----------------------
+    tcfg = load_config(ROOT / PRESET / "transformer.yaml")
+    tarch = {**dict(tcfg["model"]), "dropout": 0.0}
+    tmodel = transformer_init_(Transformer(**tarch),
+                               seeded_generator("cpu", 42))
+    tbs, seq = int(tcfg["data"]["batch_size"]), tarch["max_seq_len"]
+    g = torch.Generator().manual_seed(42)
+    tb = []
+    for _ in range(P18_STEPS):
+        x = torch.randint(0, tarch["num_tokens"], (tbs, seq - 1), generator=g)
+        t = torch.randint(0, tarch["num_tokens"], (tbs, seq - 1), generator=g)
+        lab = torch.randint(0, tarch["num_classes"], (tbs,), generator=g)
+        mask = torch.ones(tbs)
+        mask[-16:] = 0.0
+        tb.append((x, t, lab, mask))
+    tlr = float(tcfg["training"]["lr"])
+    tf_params = {k for k, _ in tmodel.named_parameters()}
+
+    def make_tf(m):
+        return TransformerEngine(
+            copy.deepcopy(tmodel), lr=tlr,
+            weight_decay=float(tcfg["training"].get("weight_decay", 0.0)),
+            label_smoothing=float(tcfg["training"].get("label_smoothing",
+                                                       0.0)),
+            seed=42, device=dev, mesh=m)
+
+    def tf_step(eng, s, st):
+        mine = eng.local_rows(tbs)
+        loss = eng.train_step(*(a[mine].to(dev) for a in tb[s]), None)
+        return {"loss": cpu(loss)[None], "grads": grads_of(eng),
+                "state": {k: cpu(v) for k, v in
+                          eng.model.state_dict().items()}}, {}
+    tf_step.initial = lambda eng: {}
+
+    # -- the baseline: batch 128, a padded tail, the EMA codebook and bank
+    bcfg = load_config(ROOT / BASELINE)
+    bm, btr = bcfg["model"], bcfg["train"]
+    bbs, n_codes = int(btr["batch_size"]), int(bm["n_codes"])
+    blr = float(btr["lr"])
+    bmodel = flax_init_(baseline_model(bm), seeded_generator("cpu", 42))
+    cb0 = CodebookState.create(seeded_generator("cpu", 42, 1), n_codes,
+                               int(bm["z_channels"]))
+    bsplit = load_dataset("cifar10", root="no-such-dir", train=True,
+                          synthetic_size=bbs * P18_STEPS, seed=42)
+    bx = torch.from_numpy(bsplit.denormalize(bsplit.images) * 2.0
+                          - 1.0).float()
+    bmask = torch.ones(len(bx))
+    bx[-16:], bmask[-16:] = 0.0, 0.0
+    vq_params = {k for k, _ in bmodel.named_parameters()}
+
+    def make_vq(m):
+        return VQVAEEngine(copy.deepcopy(bmodel), n_codes=n_codes,
+                           beta=float(bm["beta"]),
+                           ema_decay=float(bm["ema_decay"]),
+                           ema_eps=float(bm["ema_eps"]), lr=blr,
+                           grad_clip=float(btr["grad_clip"]), seed=42,
+                           device=dev, mesh=m)
+
+    def vq_step(eng, s, st):
+        mine = eng.local_rows(bbs)
+        sl = slice(s * bbs + mine.start, s * bbs + mine.stop)
+        xs = bx[sl].to(dev)
+        cb = CodebookState(**st["cb"])
+        res = {}
+        with torch.no_grad():  # the step's codes, as its forward has them
+            z_e = eng.model.encode(xs)
+            _, idx = quantize(cb, z_e)
+            res["codes"] = cpu(all_gather_rows(idx.reshape(len(xs), -1),
+                                               bbs, eng.mesh).reshape(-1))
+            if eng.mesh.world_size == 1:  # distances and their scale
+                flat = z_e.reshape(-1, z_e.shape[-1]).float()
+                sq, esq = (flat ** 2).sum(1, keepdim=True), \
+                    (cb.embed ** 2).sum(1)
+                res["dist"] = cpu(sq - 2.0 * flat @ cb.embed.T + esq)
+                res["scale"] = cpu(sq + esq)
+                res["z_e"] = cpu(z_e)
+        cb, bank, met = eng.train_step(cb, st["bank"], xs,
+                                       bmask[sl].to(dev),
+                                       seeded_generator(dev, 42, 3, s),
+                                       (mine.start, bbs))
+        res.update(
+            metrics={k: float(met[k]) for k in
+                     ("loss", "rec", "vq", "q_mse", "perplex", "usage")},
+            cb={k: cpu(v) for k, v in cb.as_dict().items()},
+            bank=cpu(bank), grads=grads_of(eng),
+            state={k: cpu(v) for k, v in eng.model.state_dict().items()})
+        return res, {"cb": cb.as_dict(), "bank": bank}
+    vq_step.initial = lambda eng: {
+        "cb": cb0.to(dev).as_dict(),
+        "bank": torch.zeros((eng.bank_size, int(bm["z_channels"])),
+                            device=dev)}
+
+    def check_plain(r, g, klr, params):
+        loss_gap = float(((g["loss"] - r["loss"]).abs()
+                          / r["loss"].abs().clamp_min(1e-30)).max())
+        grad_gap = _p18_grad_gap(g["grads"], r["grads"])
+        worst, buf = _p18_state_check(g["state"], r["state"], klr, params)
+        ok = {"loss": loss_gap <= 1e-5, "grads": grad_gap <= P18_GRAD_GAP,
+              "params": worst <= 2.0, "buffers": buf <= P18_STATE_ATOL}
+        return {"loss_gap": loss_gap, "grad_gap": grad_gap,
+                "worst_lr": worst, "buffer_excess": buf, "ok": ok}
+
+    def check_vq(r, g, st):
+        c = check_plain({"loss": torch.tensor([r["metrics"]["loss"]]),
+                         **r}, {"loss": torch.tensor([g["metrics"]["loss"]]),
+                                **g}, blr, vq_params)
+        rc, gc = r["codes"], g["codes"]
+        pos = torch.nonzero(gc != rc).flatten()
+        d, scale = r["dist"], r["scale"]
+        near = bool(((d[pos, gc[pos]] - d[pos, rc[pos]]).abs()
+                     <= 1e-5 * scale[pos, rc[pos]]).all()
+                    and len(pos) <= 1e-3 * len(rc))
+        metric_gap = max(abs(g["metrics"][k] - r["metrics"][k])
+                         / max(abs(r["metrics"][k]), 1e-30)
+                         for k in ("loss", "rec", "vq", "q_mse"))
+        hist = np.bincount(gc.numpy(), minlength=n_codes).astype(np.float64)
+        p = hist / max(hist.sum(), 1.0)
+        perplex = float(np.exp(-(p * np.log(p + 1e-12)).sum()))
+        usage = float((hist > 0).mean())
+        hist_gap = max(abs(g["metrics"]["perplex"] - perplex) / perplex,
+                       abs(g["metrics"]["usage"] - usage))
+        # one process's EMA update from the step's state on the
+        # data-parallel codes (equal to its own when no code differs)
+        want = ema_update(CodebookState(**{k: v.cpu() for k, v in
+                                           st["cb"].items()}),
+                          r["z_e"], gc.reshape(r["z_e"].shape[:-1]),
+                          float(bm["ema_decay"]), float(bm["ema_eps"]))
+        cb_x = max(_p18_excess(g["cb"][k], v, P18_STATE_RTOL)
+                   for k, v in want.as_dict().items())
+        bank_x = _p18_excess(g["bank"], r["bank"], P18_STATE_RTOL)
+        c.update(flips=int(len(pos)), metric_gap=metric_gap,
+                 hist_gap=hist_gap, cb_excess=cb_x, bank_excess=bank_x)
+        c["ok"].update(codes=near, metrics=metric_gap <= 1e-5,
+                       histogram=hist_gap <= 1e-5,
+                       ema=cb_x <= P18_STATE_ATOL,
+                       bank=bank_x <= P18_STATE_ATOL)
+        return c
+
+    specs = {"vae": (make_vae, vae_step, vae_engine_mod),
+             "tf": (make_tf, tf_step, tf_engine_mod),
+             "vq": (make_vq, vq_step, vq_engine_mod)}
+    results = {}
+    for kind, (make, step_fn, mod) in specs.items():
+        ref, got, eng, states = run(kind, make, step_fn)
+        ctl = {"grads": control(mod, "sum_gradients", unsummed, eng,
+                                states[0], step_fn)}
+        if kind == "vq":
+            ctl["ema"] = control(vqvae_baseline_mod, "all_reduce_sum",
+                                 lambda t, m: t, eng, states[0], step_fn)
+            ctl["bank"] = control(vq_engine_mod, "all_reduce_sum",
+                                  lambda t, m: t, eng, states[0], step_fn)
+        results[kind] = (ref, got, ctl, states)
+        del eng
+    out["host_copies"] = {k: HOST_COPIES[k] - copies0[k]
+                          for k in HOST_COPIES}
+    if mesh.rank != 0:
+        return out
+    for kind, (ref, got, ctl, states) in results.items():
+        if kind == "vq":
+            steps = [check_vq(r, g, st) for r, g, st in
+                     zip(ref, got, states)]
+            ctl_ok = {k: check_vq(ref[0], v, states[0])["ok"][k]
+                      for k, v in ctl.items()}
+        else:
+            klr, params = {"vae": (lr, vae_params),
+                           "tf": (tlr, tf_params)}[kind]
+            steps = [check_plain(r, g, klr, params)
+                     for r, g in zip(ref, got)]
+            ctl_ok = {k: check_plain(ref[0], v, klr, params)["ok"][k]
+                      for k, v in ctl.items()}
+        out[kind] = {"steps": steps,
+                     "ok": all(all(s["ok"].values()) for s in steps),
+                     "controls_failed": {k: not v for k, v in
+                                         ctl_ok.items()}}
+    return out
+
+
+def _p18d(spec: dict, mesh, dev, written: set) -> dict:
+    """18d: ``run_pipeline`` at world size 2 on the spatial preset at
+    phase 6's depth (vae 1 epoch; codebook on the first 4,096 images'
+    65,536 nodes; quality; transformer 1 epoch; generate; evaluate)."""
+    import numpy as np
+
+    from vqvae_tpu_torch.cli import run_pipeline
+    from vqvae_tpu_torch.cli.pipeline import STAGES
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.ops.knn_select import fused_select
+    from vqvae_tpu_torch.parallel import HOST_COPIES, barrier, is_primary
+    from vqvae_tpu_torch.utils.latents import load_latents, save_latents
+
+    root = Path(spec["d_root"])
+    preset = ROOT / PRESET
+    ov = pipeline_overrides(root)
+    ov["vae"]["max_epochs"] = 1
+    ov["transformer"]["training"]["epochs"] = 1
+    exp = root / load_config(preset / "quality.yaml")["experiment"]
+    run = exp / "vae" / "spatial_vae_fashionmnist"
+    copies0 = dict(HOST_COPIES)
+    root.mkdir(parents=True, exist_ok=True)
+    first = run_pipeline(preset, skip=STAGES[1:], overrides=ov,
+                         root_dir=root, device=dev)
+    if is_primary():
+        lat = load_latents(run / "latents_train")
+        save_latents(ov["codebook"]["latents_path"],
+                     *(lat[k][:CODEBOOK_IMAGES]
+                       for k in ("z", "mu", "logvar", "y")))
+    barrier(mesh)
+    fused_select.launches = 0
+    rest = run_pipeline(preset, skip=STAGES[:1], overrides=ov,
+                        root_dir=root, device=dev)
+    out = {"seconds": {**{k: v for k, v in first.items() if k != "total"},
+                       **{k: v for k, v in rest.items() if k != "total"}},
+           "k1_launches": fused_select.launches,
+           "host_copies": {k: HOST_COPIES[k] - copies0[k]
+                           for k in HOST_COPIES}}
+    prefix = str(root.resolve()) + os.sep
+    out["written"] = sorted(p for p in written if p.startswith(prefix))
+    if mesh.rank == 0:
+        codes = np.load(exp / "codebook" / "codes.npy")
+        from scipy import sparse
+
+        lcc = sparse.load_npz(exp / "codebook" /
+                              "knn_graph_geodesic.npz").shape[0]
+        out["codes_ok"] = bool(codes.shape == (CODEBOOK_IMAGES, 4, 4)
+                               and (codes >= 0).sum() == lcc
+                               and codes.min() >= -1 and codes.max() < 512)
+        losses = []
+        for path in (run / "metrics.jsonl",
+                     exp / "transformer" / "metrics.jsonl"):
+            for line in path.read_text().splitlines():
+                row = json.loads(line)
+                losses += [row["train_loss"], row["val_loss"]]
+        out["losses_finite"] = bool(losses and np.isfinite(losses).all())
+        out["tree"] = sorted(str(p.resolve()) for p in root.rglob("*")
+                             if p.is_file())
+    return out
+
+
+def phase18_rank(spec_path: str) -> None:
+    """A rank of phase 18 (started by ``launch_ranks``)."""
+    spec = json.loads(Path(spec_path).read_text())
+    sys.path.insert(0, str(ROOT))
+    written: set = set()
+
+    def audit(event, args):  # files this rank writes or renames into place
+        if event == "open" and isinstance(args[0], (str, os.PathLike)):
+            mode, flags = args[1], args[2] or 0
+            if (any(c in mode for c in "wax+") if isinstance(mode, str)
+                    else bool(flags & (os.O_WRONLY | os.O_RDWR))):
+                written.add(os.path.realpath(os.fspath(args[0])))
+        elif event == "os.rename":
+            written.add(os.path.realpath(os.fsdecode(args[1])))
+
+    sys.addaudithook(audit)
+    import torch
+
+    save = torch.save
+
+    def recorded_save(obj, f, *a, **kw):  # torch writes a path from C++
+        if isinstance(f, (str, os.PathLike)):
+            written.add(os.path.realpath(os.fspath(f)))
+        return save(obj, f, *a, **kw)
+
+    torch.save = recorded_save
+    from vqvae_tpu_torch.device import resolve_device
+    from vqvae_tpu_torch.parallel import init_distributed
+
+    dev = resolve_device(spec["device"])  # TF32 off
+    rank = int(os.environ["RANK"])
+    if spec["part"] == "a":
+        out = _p18a_rank(spec, dev)
+    else:
+        mesh = init_distributed("gloo", device=dev)
+        out = {"backend": mesh.backend, "world": mesh.world_size}
+        t0 = time.perf_counter()
+        out["b"] = _p18b(spec, mesh, dev)
+        out["b"]["wall"] = time.perf_counter() - t0
+        log(f"18b done in {out['b']['wall']:.3f}s")
+        t0 = time.perf_counter()
+        out["c"] = _p18c(spec, mesh, dev)
+        out["c"]["wall"] = time.perf_counter() - t0
+        log(f"18c done in {out['c']['wall']:.3f}s")
+        t0 = time.perf_counter()
+        out["d"] = _p18d(spec, mesh, dev, written)
+        out["d"]["wall"] = time.perf_counter() - t0
+        log(f"18d done in {out['d']['wall']:.3f}s")
+    out_path = Path(spec["work"]) / f"{spec['label']}_rank{rank}.json"
+    out_path.write_text(json.dumps(out))
+
+
+def _p18c_report(ranks: list) -> None:
+    """Log 18c's per-step gaps and controls (rank 0 checked them); fail on
+    a step beyond its limits or a control that passed."""
+    c = ranks[0]["c"]
+    names = {"vae": "VAE", "tf": "transformer", "vq": "baseline"}
+    for k in ("vae", "tf", "vq"):
+        st = c[k]["steps"]
+        gaps = ", ".join(f"{x['loss_gap']:.3e}" for x in st)
+        log(f"18c {names[k]}: {P18_STEPS} steps, each from one process's "
+            f"state, 2 ranks x half batch vs 1 x whole: loss gap by step "
+            f"[{gaps}], gradients apart at most "
+            f"{max(x['grad_gap'] for x in st):.3e} of their norm, "
+            f"parameters apart at most "
+            f"{max(x['worst_lr'] for x in st):.3f} lr"
+            + (f", BatchNorm statistics beyond rtol {P18_STATE_RTOL:g} by "
+               f"at most {max(x['buffer_excess'] for x in st):.3e}"
+               if k == "vae" else "")
+            + (f"; codes differing by step {[x['flips'] for x in st]} "
+               f"(near-ties: {all(x['ok']['codes'] for x in st)}), "
+               f"metrics {max(x['metric_gap'] for x in st):.3e} apart, "
+               f"perplexity and usage {max(x['hist_gap'] for x in st):.3e} "
+               f"from the codes' histogram, EMA codebook and bank beyond "
+               f"rtol {P18_STATE_RTOL:g} by at most "
+               f"{max(x['cb_excess'] for x in st):.3e} and "
+               f"{max(x['bank_excess'] for x in st):.3e} of their largest "
+               f"values" if k == "vq" else "")
+            + f"; controls failed as they must: {c[k]['controls_failed']}")
+        bad = [(i, [n for n, v in x["ok"].items() if not v])
+               for i, x in enumerate(st) if not all(x["ok"].values())]
+        if bad:
+            fail(f"18c: the {names[k]} data-parallel steps differ from one "
+                 f"process's (step, checks): {bad}")
+        passed = [n for n, v in c[k]["controls_failed"].items() if not v]
+        if passed:
+            fail(f"18c: the {names[k]} controls {passed} passed the checks "
+                 f"they must fail")
+    log(f"18c step seconds by rank {[_fmt(r['c']['seconds']) for r in ranks]}"
+        f" (one process {_fmt(c['seconds_one'])}); gloo host copies by rank "
+        f"{[r['c']['host_copies'] for r in ranks]}; wall {c['wall']:.3f}s")
+
+
+def phase_mesh(work: Path, exp6: Path, cut6: Path) -> dict:
+    """Phase 18: the device mesh. 18a one NCCL rank on phase 6's graph;
+    18b-d two gloo ranks sharing the card (see the module notes)."""
+    p18 = work / "p18"
+    t0 = time.perf_counter()
+    a = launch_ranks(1, {
+        "part": "a", "device": "cuda:0", "latents": str(cut6),
+        "vae": str(exp6 / "vae" / "spatial_vae_fashionmnist" / "checkpoints"
+                   / "best.pt")}, p18, "a")[0]
+    t_a = time.perf_counter() - t0
+    if a["differ"]:
+        fail(f"18a: the one-rank NCCL group changed {a['differ']}")
+    if a["k1_mesh"] <= 0:
+        fail("18a: the sharded kNN launched no K1/K2 kernel")
+    log(f"18a NCCL world 1 on {a['nodes']} nodes: kNN indices, lengths, "
+        f"LCC, medoids, assignments, QE {a['qe']} and {P18_SOURCES}-source "
+        f"distances bit for bit; K1 launches {a['k1_mesh']} (plain "
+        f"{a['k1_plain']}); seconds plain {_fmt(a['seconds_plain'])}, "
+        f"group {_fmt(a['seconds_mesh'])}; wall {t_a:.3f}s")
+
+    t0 = time.perf_counter()
+    main = work / "main"
+    ranks = launch_ranks(P18_RANKS, {
+        "part": "bcd", "device": "cuda:0",
+        "b_latents": str(main / "latents"), "b_vae": str(main / "vae.pt"),
+        "b_codebook": str(main / "codebook"),
+        "d_root": str(p18 / "d")}, p18, "bcd")
+    t_bcd = time.perf_counter() - t0
+    r0 = ranks[0]
+    b = r0["b"]
+    if any(r["backend"] != "gloo" or r["world"] != P18_RANKS for r in ranks):
+        fail("18b-d: expected a two-rank gloo group")
+    if any(r["b"]["k1_launches"] <= 0 for r in ranks):
+        fail("18b: a rank launched no K1/K2 kernel")
+    if b["knn_near_ties"] != b["knn_rows_differ"] \
+            or b["knn_rows_differ"] > 1e-3 * b["nodes"]:
+        fail(f"18b: kNN rows differ beyond near-ties: "
+             f"{b['knn_rows_differ']} rows, {b['knn_near_ties']} near-ties")
+    if any(r["b"]["lengths_over_1e-6"] for r in ranks):
+        fail(f"18b: lengths beyond rtol 1e-6 of phase 4's: "
+             f"{b['lengths_over_1e-6']} (max {b['lengths_max_rel']})")
+    for r in ranks:
+        if not (r["b"]["medoids_equal"] and r["b"]["assign_equal"]
+                and r["b"]["qe"] == r["b"]["qe_ref"]):
+            fail(f"18b: medoids / assignments / QE differ from phase 4's "
+                 f"(QE {r['b']['qe']} vs {r['b']['qe_ref']})")
+    if not b["distances_equal"]:
+        fail("18b: sharded distances differ from one process's")
+    log(f"18b gloo x{P18_RANKS} on cuda:0, {b['nodes']} nodes: kNN rows "
+        f"differing from one process {b['knn_rows_differ']} (near-ties "
+        f"{b['knn_near_ties']}); {b['edges']} lengths on phase 4's graph, "
+        f"max rel {b['lengths_max_rel']:.3e}; medoids, assignments, QE "
+        f"{b['qe']} and {P18_SOURCES}-source distances identical; K1 "
+        f"launches by rank {[r['b']['k1_launches'] for r in ranks]}; "
+        f"seconds by rank {[_fmt(r['b']['seconds']) for r in ranks]}; "
+        f"gloo host copies by rank "
+        f"{[r['b']['host_copies'] for r in ranks]}; wall {b['wall']:.3f}s")
+
+    _p18c_report(ranks)
+
+    d = r0["d"]
+    if ranks[1]["d"]["written"]:
+        fail(f"18d: rank 1 wrote {ranks[1]['d']['written'][:5]}")
+    missing = sorted(set(d["tree"]) - set(d["written"]))
+    if missing:
+        fail(f"18d: files not written by rank 0: {missing[:5]}")
+    if not (d["codes_ok"] and d["losses_finite"]):
+        fail(f"18d: codes ok {d['codes_ok']}, losses finite "
+             f"{d['losses_finite']}")
+    if any(r["d"]["k1_launches"] <= 0 for r in ranks):
+        fail("18d: a rank's codebook stage launched no K1/K2 kernel")
+    log(f"18d run_pipeline world {P18_RANKS}: {len(d['tree'])} files, each "
+        f"written by rank 0 only; codes -1 only off the LCC; losses finite; "
+        f"K1 launches by rank {[r['d']['k1_launches'] for r in ranks]}; "
+        f"stage seconds by rank {[_fmt(r['d']['seconds']) for r in ranks]};"
+        f" gloo host copies by rank {[r['d']['host_copies'] for r in ranks]};"
+        f" wall {d['wall']:.3f}s")
+    log(f"phase 18: 18a {t_a:.3f}s, 18b-d {t_bcd:.3f}s")
+    return {"a": a, "b": b, "k1_launches": [r["b"]["k1_launches"]
+                                            for r in ranks]}
+
+
+def _fmt(secs: dict) -> str:
+    return "{" + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()) + "}"
+
+
 def main() -> None:
+    if len(sys.argv) > 2 and sys.argv[1] == "--phase18-rank":
+        return phase18_rank(sys.argv[2])  # a rank that phase 18 started
     try:
         import torch
     except ImportError:
@@ -3136,6 +4018,9 @@ def main() -> None:
         cifar = phase_cifar(work, pipe["exp"], cut)
         kernels.update(cifar["b"])
         log(f"phase 17 {time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+        phase_mesh(work, pipe["exp"], cut)
+        log(f"phase 18 {time.perf_counter() - t0:.3f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -130,6 +130,9 @@ _IMPORT_CHECK = textwrap.dedent("""
     import vqvae_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(vqvae_tpu_torch.__path__,
                                                   "vqvae_tpu_torch.")]
+    # the device mesh (parallel/) is walked with the rest
+    assert {"vqvae_tpu_torch.parallel",
+            "vqvae_tpu_torch.parallel.mesh"} <= set(names), names
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # the smoke script's imports count too
@@ -243,3 +246,27 @@ def test_port_imports_no_jax_and_needs_a_device_without_cuda():
     assert int(lines[0]) >= 56  # every module of every slice was imported
     if not torch.cuda.is_available():
         assert lines[-1] == "raised"
+
+
+def test_no_module_of_the_port_names_jax_in_an_import():
+    """Every import statement of the port's sources (the device mesh
+    under ``parallel/`` included) and of ``chip_smoke.py``, read from the
+    files: none names ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax``
+    or the JAX package, also inside functions."""
+    import ast
+
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "vqvae_tpu"}
+    files = sorted((REPO / "vqvae_tpu_torch").rglob("*.py"))
+    assert REPO / "vqvae_tpu_torch" / "parallel" / "mesh.py" in files
+    bad = []
+    for path in files + [REPO / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(REPO)}: {m}" for m in mods
+                    if m.split(".")[0] in banned]
+    assert not bad, bad

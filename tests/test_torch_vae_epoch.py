@@ -67,7 +67,7 @@ def no_noise(monkeypatch):
     monkeypatch.setattr(jax_vae_mod, "reparameterize",
                         lambda rng, mu, logvar: mu)
     monkeypatch.setattr(vae_mod, "reparameterize",
-                        lambda mu, logvar, generator: mu)
+                        lambda mu, logvar, generator, rows=None: mu)
 
 
 def _np_tree(tree):

@@ -13,7 +13,10 @@ through decoder JVPs -> symmetric CSR -> LCC -> graph K-medoids -> codes
 
 Run: ``python -m vqvae_tpu_torch.cli.build_codebook --config <yaml>
 [--device cpu]``; the VAE checkpoint must be a reference-format ``.pt``
-file (``utils/checkpoint.py``).
+file (``utils/checkpoint.py``). As in JAX, every geo kernel shards over
+the mesh (``get_mesh()``): under ``torchrun`` the kNN query blocks, the
+edge chunks and the k-medoids source columns split over the ranks, every
+rank assembles the same graph, and rank 0 writes the artifacts.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from ..ops.kmedoids import fit_kmedoids
 from ..ops.knn import resolve_knn_kernel
 from ..ops.riemannian import (edge_lengths_riemannian_auto,
                               make_decoder_image_fn)
+from ..parallel.mesh import barrier, get_mesh, init_distributed, is_primary
 from ..utils.checkpoint import load_vae_from_checkpoint
 from ..utils.latents import flatten_spatial, load_latents
 
@@ -41,9 +45,12 @@ from ..utils.latents import flatten_spatial, load_latents
 def build_codebook_main(cfg: Config, device=None) -> Path:
     """Run the codebook stage for ``cfg`` on ``device`` (default the GPU;
     raises when CUDA is absent and no device is given)."""
+    init_distributed(device=device)
     dev = resolve_device(device)
+    mesh = get_mesh()  # every geo kernel shards over the process group
     out_dir = Path(cfg["out_dir"])
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if is_primary():
+        out_dir.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
     vae_cfg = dict(cfg["vae"])
@@ -78,7 +85,8 @@ def build_codebook_main(cfg: Config, device=None) -> Path:
     t0 = time.perf_counter()
     W_eu, _ = build_knn_graph_auto(z_flat, k=k, metric="euclidean",
                                    mode="connectivity", sym=sym,
-                                   force_method=method, device=dev)
+                                   force_method=method, device=dev,
+                                   mesh=mesh)
     t_knn = time.perf_counter() - t0
     print(f"[codebook] kNN graph: {W_eu.shape[0]} nodes, {W_eu.nnz} edges "
           f"({t_knn:.3f}s)")
@@ -90,7 +98,8 @@ def build_codebook_main(cfg: Config, device=None) -> Path:
         "batch_size", cfg.get("batch_size", 512)))
     t0 = time.perf_counter()
     lengths = edge_lengths_riemannian_auto(decode_fn, z_flat, rows, cols,
-                                           batch_size=batch_size, device=dev)
+                                           batch_size=batch_size, device=dev,
+                                           mesh=mesh)
     t_riem = time.perf_counter() - t0
     print(f"[codebook] Riemannian re-weighting: {len(lengths)} edges "
           f"({t_riem:.3f}s)")
@@ -106,7 +115,8 @@ def build_codebook_main(cfg: Config, device=None) -> Path:
         z_lcc = z_flat[mask_lcc]
     else:
         W_lcc, z_lcc = W_geo, z_flat
-    sparse.save_npz(out_dir / "knn_graph_geodesic.npz", W_lcc.tocsr())
+    if is_primary():
+        sparse.save_npz(out_dir / "knn_graph_geodesic.npz", W_lcc.tocsr())
     t_lcc = time.perf_counter() - t0
 
     quant_cfg = cfg.get("quantize", Config({}))
@@ -119,7 +129,8 @@ def build_codebook_main(cfg: Config, device=None) -> Path:
     t0 = time.perf_counter()
     medoids, assign_lcc, qe = fit_kmedoids(
         W_lcc, K=K, init=init, seed=seed, kpp_rounds=kpp_rounds,
-        kpp_schedule=kpp_schedule, device=dev, assume_symmetric=True)
+        kpp_schedule=kpp_schedule, device=dev, assume_symmetric=True,
+        mesh=mesh)
     t_kmed = time.perf_counter() - t0
     print(f"[codebook] K-medoids: K={len(medoids)}, qe={qe:.6f} "
           f"({t_kmed:.3f}s)")
@@ -139,13 +150,17 @@ def build_codebook_main(cfg: Config, device=None) -> Path:
         **{f"vae_{kk}": (list(v) if isinstance(v, tuple) else v)
            for kk, v in vae_cfg.items()},
         "device": str(dev),
+        "world_size": mesh.world_size,
         "quantization_error": qe,
         "lcc_nodes": int(mask_lcc.sum()),
         "timings_s": {"knn": t_knn, "riemannian": t_riem, "lcc": t_lcc,
                       "kmedoids": t_kmed,
                       "total": time.perf_counter() - t_start},
     }
-    save_codebook_artifacts(out_dir, medoids, z_medoid, codes, config_record)
+    if is_primary():
+        save_codebook_artifacts(out_dir, medoids, z_medoid, codes,
+                                config_record)
+    barrier(mesh)  # rank 0's writes are done before any rank goes on
     print(f"[codebook] Quantization error: {qe:.6f}")
     print(f"[codebook] Saved artifacts to: {out_dir} "
           f"(total {time.perf_counter() - t_start:.3f}s)")

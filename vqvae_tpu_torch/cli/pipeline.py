@@ -26,6 +26,17 @@ reference-style config without the key implies one (``codebook_builder``).
 then evaluate, in process (``scripts/run_baseline_pipeline.py`` runs the
 two scripts as subprocesses).
 
+Several cards: ``torchrun --nproc-per-node <cards> -m
+vqvae_tpu_torch.cli.pipeline --preset ...`` joins one process group
+(``parallel.init_distributed``: ``nccl``, or ``--dist-backend gloo`` to
+put several ranks on one card with ``--device cuda:0``; the stage CLIs
+alone take ``nccl`` on cards, ``gloo`` with ``--device cpu``). The VAE,
+spatial codebook and transformer stages (and the baseline's training) run
+on every rank, sharded; the stages that take no mesh in JAX (quality,
+generate, evaluate, the legacy builders, the baseline's evaluation) run
+on rank 0 while the others wait; a barrier closes every stage, and rank 0
+alone writes. Without ``torchrun`` nothing changes.
+
 Run: ``python -m vqvae_tpu_torch.cli.pipeline --preset <dir> [--skip-vae
 ...] [--timings-out <json>] [--device cpu]``, or for the baseline
 ``python -m vqvae_tpu_torch.cli.pipeline --baseline <config.yaml>
@@ -43,10 +54,13 @@ from typing import Dict, Iterable, Optional
 
 from ..config import Config, load_config
 from ..device import resolve_device
+from ..parallel.mesh import barrier, init_distributed, is_primary
 from ..utils.profiling import CompileStats, profile_trace
 
 STAGES = ("vae", "codebook", "quality", "transformer", "generate", "evaluate")
 NON_CRITICAL = {"quality", "evaluate"}
+# stages that take a mesh (JAX's sharded stages); the rest run on rank 0
+SHARDED_STAGES = {"vae", "codebook", "transformer"}
 
 
 def _stage_config(config_dir: Path, stage: str,
@@ -66,6 +80,13 @@ def codebook_builder(cfg: Config) -> str:
             return "legacy_riemannian"
         return "legacy" if "model" in cfg else "spatial"
     return str(builder)
+
+
+def _sharded(stage: str, cfg: Config) -> bool:
+    """True for a stage every rank runs (the spatial codebook builder
+    takes a mesh; the legacy builders do not)."""
+    return stage in SHARDED_STAGES and not (
+        stage == "codebook" and codebook_builder(cfg) != "spatial")
 
 
 def _run_stage(stage: str, cfg: Config, device) -> None:
@@ -106,11 +127,15 @@ def run_pipeline(
     overrides: Optional[Dict] = None,
     root_dir: str | Path = ".",
     device=None,
+    dist_backend: Optional[str] = None,
 ) -> Dict[str, float]:
     """Run every configured stage under ``config_dir`` on ``device``
     (default the GPU; raises when CUDA is absent and no device is given);
     ``overrides`` maps a stage to a dict deep-merged into its YAML. Returns
-    per-stage wall seconds and ``total``."""
+    per-stage wall seconds and ``total``. Under ``torchrun`` the ranks
+    join one process group (``dist_backend``, default ``nccl`` on cards)
+    and run the stages as the module notes say."""
+    mesh = init_distributed(dist_backend, device=device)
     dev = resolve_device(device)
     config_dir = Path(config_dir).resolve()
     if not config_dir.is_dir():
@@ -139,14 +164,16 @@ def run_pipeline(
             t0 = time.perf_counter()
             c0 = compiles.snapshot()
             try:
-                with profile_trace(stage):
-                    _run_stage(stage, cfg, dev)
+                if _sharded(stage, cfg) or is_primary():
+                    with profile_trace(stage):
+                        _run_stage(stage, cfg, dev)
             except Exception:
                 traceback.print_exc()
                 if stage not in NON_CRITICAL:
                     raise
                 print(f"[pipeline] non-critical stage {stage} failed; "
                       f"continuing")
+            barrier(mesh)  # the stage's writes are done on every rank
             timings[stage] = time.perf_counter() - t0
             dc = compiles.delta(c0)
             print(f"[pipeline] {stage} done in {timings[stage]:.1f}s "
@@ -162,7 +189,7 @@ def run_pipeline(
           f"{dt['programs']} programs compiled, {dt['compile_seconds']}s "
           f"compiling")
     timings_path = os.environ.get("VQVAE_TPU_TIMINGS_PATH")
-    if timings_path:
+    if timings_path and is_primary():
         with open(timings_path, "w") as f:
             json.dump({**timings, "programs_compiled": dt["programs"],
                        "compile_seconds": dt["compile_seconds"]}, f,
@@ -172,14 +199,18 @@ def run_pipeline(
 
 def run_baseline_pipeline(config: str | Path, skip_train: bool = False,
                           epochs: Optional[int] = None,
-                          device=None) -> Dict[str, float]:
+                          device=None,
+                          dist_backend: Optional[str] = None
+                          ) -> Dict[str, float]:
     """The EMA VQ-VAE baseline from its config file: train (``epochs``
     overrides ``train.epochs``), then evaluate, in process, on ``device``
     (default the GPU; raises when CUDA is absent and no device is given).
-    Returns wall seconds by step and ``total``."""
+    Returns wall seconds by step and ``total``. Under ``torchrun`` the
+    training runs data-parallel on every rank and rank 0 evaluates."""
     from .evaluate_baseline import evaluate_baseline_main
     from .train_baseline_vqvae import train_baseline_main
 
+    mesh = init_distributed(dist_backend, device=device)
     dev = resolve_device(device)
     overrides = {"train": {"epochs": epochs}} if epochs is not None else None
     cfg = load_config(config, overrides=overrides)
@@ -190,7 +221,9 @@ def run_baseline_pipeline(config: str | Path, skip_train: bool = False,
         train_baseline_main(cfg, device=dev)
         timings["train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    evaluate_baseline_main(cfg, device=dev)
+    if is_primary():
+        evaluate_baseline_main(cfg, device=dev)
+    barrier(mesh)
     timings["evaluate"] = time.perf_counter() - t0
     timings["total"] = time.perf_counter() - t_total
     print(f"[baseline] TOTAL: {timings['total']:.1f}s "
@@ -224,17 +257,24 @@ def main(argv=None) -> Dict[str, float]:
     parser.add_argument("--timings-out", default=None,
                         help="write per-stage wall seconds as JSON here")
     parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda)")
+                        help="torch device (default: cuda; under torchrun "
+                             "the rank's card)")
+    parser.add_argument("--dist-backend", default=None,
+                        choices=("nccl", "gloo"),
+                        help="process-group backend under torchrun "
+                             "(default: nccl on cards, gloo on the CPU)")
     args = parser.parse_args(argv)
     if args.baseline:
         timings = run_baseline_pipeline(args.baseline,
                                         skip_train=args.skip_train,
                                         epochs=args.epochs,
-                                        device=args.device)
+                                        device=args.device,
+                                        dist_backend=args.dist_backend)
     else:
         skip = {s for s in STAGES if getattr(args, f"skip_{s}")}
-        timings = run_pipeline(args.preset, skip=skip, device=args.device)
-    if args.timings_out:
+        timings = run_pipeline(args.preset, skip=skip, device=args.device,
+                               dist_backend=args.dist_backend)
+    if args.timings_out and is_primary():
         with open(args.timings_out, "w") as f:
             json.dump(timings, f, indent=2)
     return timings

@@ -22,6 +22,7 @@ from ..config import Config, load_config
 from ..data.loader import get_data_loaders, get_split_loader
 from ..device import resolve_device
 from ..models.vqvae_baseline import VQVAE
+from ..parallel.mesh import barrier, init_distributed
 from ..train.vqvae_engine import VQVAEEngine
 from ..utils.logging import MetricsLogger
 
@@ -52,7 +53,9 @@ def baseline_split_loader(cfg: Config, batch_size: int, train: bool):
 def train_baseline_main(cfg: Config, device=None) -> Path:
     """Train the baseline for ``cfg`` on ``device`` (default the GPU;
     raises when CUDA is absent and no device is given). Returns the
-    output directory."""
+    output directory. Under ``torchrun`` the ranks train data-parallel and
+    rank 0 writes."""
+    mesh = init_distributed(device=device)
     dev = resolve_device(device)
     train_loader, val_loader = get_data_loaders(
         **_loader_args(cfg, int(cfg["train"]["batch_size"])))
@@ -68,6 +71,7 @@ def train_baseline_main(cfg: Config, device=None) -> Path:
         grad_clip=float(cfg["train"].get("grad_clip", 1.0)),
         seed=int(cfg.get("seed", 42)),
         device=dev,
+        mesh=mesh,
     )
     out_dir = Path(str(cfg.get("out_dir", "outputs/baseline_vqvae")))
     logger = MetricsLogger(out_dir, run_name="baseline_vqvae")
@@ -79,6 +83,7 @@ def train_baseline_main(cfg: Config, device=None) -> Path:
                  samples_every=int(cfg.get("log", {}).get("samples_every",
                                                           1)))
     logger.end()
+    barrier(mesh)  # rank 0's writes are done before any rank goes on
     print("Done. Artifacts in:", out_dir)
     return out_dir
 

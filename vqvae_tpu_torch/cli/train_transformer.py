@@ -27,6 +27,7 @@ from ..data.codes import get_code_loaders
 from ..device import resolve_device
 from ..models.cast import resolve_dtype
 from ..models.transformer import Transformer
+from ..parallel.mesh import barrier, init_distributed, is_primary
 from ..train.transformer_engine import TransformerEngine
 from ..utils.checkpoint import read_checkpoint
 from ..utils.logging import MetricsLogger
@@ -56,7 +57,9 @@ def _load_labels_any(path: str | None):
 def train_transformer_main(cfg: Config, device=None) -> Path:
     """Run the transformer stage for ``cfg`` on ``device`` (default the
     GPU; raises when CUDA is absent and no device is given). Returns the
-    output directory."""
+    output directory. Under ``torchrun`` the ranks train data-parallel and
+    rank 0 writes."""
+    mesh = init_distributed(device=device)
     dev = resolve_device(device)
     data_cfg = cfg["data"]
     model_cfg = dict(cfg["model"])
@@ -73,8 +76,10 @@ def train_transformer_main(cfg: Config, device=None) -> Path:
     if labels_arr is not None:
         # a .npy next to the outputs keeps the dataset's loader simple
         cache = out_dir / "labels_cache.npy"
-        cache.parent.mkdir(parents=True, exist_ok=True)
-        np.save(cache, labels_arr)
+        if is_primary():
+            cache.parent.mkdir(parents=True, exist_ok=True)
+            np.save(cache, labels_arr)
+        barrier(mesh)
         labels_path = str(cache)
 
     train_loader, val_loader = get_code_loaders(
@@ -105,6 +110,7 @@ def train_transformer_main(cfg: Config, device=None) -> Path:
         label_smoothing=float(train_cfg.get("label_smoothing", 0.0)),
         seed=seed,
         device=dev,
+        mesh=mesh,
     )
     engine.init_state()
     latest = out_dir / "checkpoints" / "latest.pt"
@@ -123,6 +129,7 @@ def train_transformer_main(cfg: Config, device=None) -> Path:
                  num_epochs=int(train_cfg["epochs"]),
                  checkpoint_dir=out_dir / "checkpoints", logger=logger)
     logger.end()
+    barrier(mesh)  # rank 0's writes are done before any rank goes on
     print("Done. Artifacts in:", out_dir)
     return out_dir
 

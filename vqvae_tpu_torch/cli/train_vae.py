@@ -8,7 +8,8 @@ As in the JAX package, a cosine scheduler anneals over ``max_epochs``, not
 ``latents_train`` / ``latents_val``, ``recon_grid.png``, ``metrics.csv``,
 ``metrics.jsonl`` and ``params.yaml``. ``model.dtype`` (``float32``,
 ``bfloat16`` or ``float16``) sets the compute dtype; the parameters and
-checkpoints stay float32.
+checkpoints stay float32. Under ``torchrun`` the ranks train data-parallel
+(``parallel.init_distributed``) and rank 0 writes.
 
 Run: ``python -m vqvae_tpu_torch.cli.train_vae --config <yaml>
 [--device cpu]``.
@@ -24,6 +25,7 @@ from ..data import get_data_loaders
 from ..device import resolve_device
 from ..models import VAE
 from ..models.cast import resolve_dtype
+from ..parallel.mesh import barrier, init_distributed
 from ..train import VAEEngine
 from ..utils.checkpoint import read_checkpoint
 from ..utils.logging import MetricsLogger
@@ -33,7 +35,9 @@ def train_vae_main(cfg: Config, topology: Optional[str] = None,
                    device=None) -> Path:
     """Run the VAE stage for ``cfg`` on ``device`` (default the GPU;
     raises when CUDA is absent and no device is given). Returns the run's
-    output directory."""
+    output directory. Under ``torchrun`` (``WORLD_SIZE``/``RANK`` set) it
+    joins the process group and trains data-parallel; rank 0 writes."""
+    mesh = init_distributed(device=device)
     dev = resolve_device(device)
     seed = int(cfg.get("seed", 42))
     model_cfg = dict(cfg["model"])
@@ -92,6 +96,7 @@ def train_vae_main(cfg: Config, topology: Optional[str] = None,
         steps_per_epoch=len(train_loader),
         seed=seed,
         device=dev,
+        mesh=mesh,
     )
     engine.init_state()
     latest = ckpt_dir / "latest.pt"
@@ -114,6 +119,7 @@ def train_vae_main(cfg: Config, topology: Optional[str] = None,
         beta=beta,
     )
     logger.end()
+    barrier(mesh)  # rank 0's writes are done before any rank goes on
     print("Done. Artifacts in:", out_dir)
     return out_dir
 

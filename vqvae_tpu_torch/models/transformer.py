@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import global_value
 from .cast import Linear, resolve_dtype, set_compute_dtype
 
 _INIT_STD = 0.02
@@ -262,16 +263,19 @@ def transformer_init_(model: Transformer,
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
-                       label_smoothing: float = 0.0) -> torch.Tensor:
+                       label_smoothing: float = 0.0,
+                       mesh=None) -> torch.Tensor:
     """Token-averaged cross entropy; ``mask`` (B,) weights whole rows and
     the sum is divided by ``max(sum of weights, 1)``. Label smoothing mixes
-    in ``-mean(log p)`` over the vocabulary."""
+    in ``-mean(log p)`` over the vocabulary. The sum and the token count
+    are the global batch's of ``mesh`` (``parallel.global_value``; None:
+    this batch's)."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
     if label_smoothing > 0.0:
         smooth = -logp.mean(dim=-1)
         nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
-    if mask is not None:
-        w = mask[:, None] * torch.ones_like(nll)
-        return (nll * w).sum() / torch.clamp_min(w.sum(), 1.0)
-    return nll.mean()
+    w = (mask[:, None] * torch.ones_like(nll) if mask is not None
+         else torch.ones_like(nll))
+    num, den = global_value(torch.stack([(nll * w).sum(), w.sum()]), mesh)
+    return num / (torch.clamp_min(den, 1.0) if mask is not None else den)

@@ -31,6 +31,13 @@ transposed conv computes in ``dtype`` (``models/cast.py``); the norms
 normalize in float32 and return ``dtype``, with float32 running
 statistics; the encoder returns float32 mu and logvar and the decoder
 float32 logits, as the JAX model casts them.
+
+Data parallelism (``parallel.Mesh``): ``set_batchnorm_mesh`` makes every
+BatchNorm take its training statistics over the global batch, as flax's
+do under a sharded ``jit`` (count, sum and sum of squares all-reduced,
+flax's fast variance ``E[x^2] - E[x]^2``, padded rows included), and
+``elbo_loss(..., mesh=)`` divides by the global ``mask.sum()`` with the
+capacity term on the global KL.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum_autograd, global_value
 from .cast import (Conv2d, ConvTranspose2d, Linear, resolve_dtype,
                    set_compute_dtype)
 
@@ -63,8 +71,12 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.99):
         super().__init__(ch, eps=eps, momentum=1.0 - momentum)
         self.flax_momentum = momentum
+        self.mesh = None  # set_batchnorm_mesh: global training statistics
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.mesh is not None \
+                and self.mesh.distributed:
+            return self._forward_global(x)
         if x.dtype != torch.float32:
             return self._forward_flax(x)
         if not self.training:
@@ -81,6 +93,27 @@ class BatchNorm(nn.BatchNorm2d):
         self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         self.num_batches_tracked.add_(1)
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Training statistics over the global batch of ``self.mesh``:
+        per-channel count, sum and sum of squares summed over ranks (the
+        gradient reaches every rank's rows), flax's fast biased variance,
+        then flax's normalization in float32."""
+        xf = x.float()
+        c = xf.shape[1]
+        count = xf.new_full((1,), float(xf.numel() // max(c, 1)))
+        stats = all_reduce_sum_autograd(
+            torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]),
+            self.mesh)
+        n = torch.clamp_min(stats[2 * c], 1.0)
+        mean = stats[:c] / n
+        var = torch.clamp_min(stats[c:2 * c] / n - mean * mean, 0.0)
+        with torch.no_grad():
+            self._update_running(mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
 
     def _forward_flax(self, x: torch.Tensor) -> torch.Tensor:
         """A half precision input, as flax normalizes it: float32 batch
@@ -110,6 +143,15 @@ class GroupNorm(nn.GroupNorm):
         if x.dtype != torch.float32:
             return super().forward(x.float()).to(x.dtype)
         return super().forward(x)
+
+
+def set_batchnorm_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Every ``BatchNorm`` of ``model`` takes its training statistics over
+    ``mesh``'s global batch (``None``: this process's batch)."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.mesh = mesh
+    return model
 
 
 def _norm(norm_type: str, ch: int) -> nn.Module:
@@ -250,12 +292,15 @@ class VAE(nn.Module):
         return self.decoder(z)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                noise_rows: Optional[Tuple[int, int]] = None):
         """x (B, H, W, C) -> (logits, mu, logvar, z); z is sampled with
-        ``generator`` (on its own device) when one is given, else z = mu."""
+        ``generator`` (on its own device) when one is given, else z = mu.
+        ``noise_rows`` (start, total): x holds rows ``start:start + B`` of
+        a global batch of ``total`` rows, whose noise is drawn whole."""
         mu, logvar = self.encoder(x)
-        z = mu if generator is None else reparameterize(mu, logvar,
-                                                        generator)
+        z = mu if generator is None else reparameterize(
+            mu, logvar, generator, rows=noise_rows)
         return self.decoder(z), mu, logvar, z
 
     @property
@@ -263,7 +308,8 @@ class VAE(nn.Module):
         return self.recon_loss == "bce" or self.mse_use_sigmoid
 
     def loss(self, x, x_logits, mu, logvar, *, beta: float,
-             mask: Optional[torch.Tensor] = None, step: int = 0):
+             mask: Optional[torch.Tensor] = None, step: int = 0,
+             mesh=None):
         """``elbo_loss`` with this model's loss settings."""
         return elbo_loss(
             x, x_logits, mu, logvar, recon_loss=self.recon_loss,
@@ -272,7 +318,7 @@ class VAE(nn.Module):
             capacity_max=self.capacity_max,
             capacity_anneal_steps=self.capacity_anneal_steps,
             capacity_mode=self.capacity_mode, step=step,
-            spatial_free_bits=self.spatial_free_bits)
+            spatial_free_bits=self.spatial_free_bits, mesh=mesh)
 
 
 def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -305,14 +351,21 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
-                   generator: torch.Generator) -> torch.Tensor:
+                   generator: torch.Generator,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """mu + eps * exp(logvar / 2), eps ~ N(0, 1) drawn by ``generator`` on
     its own device and moved to mu's. The engine's generators live on the
     model's device; a CPU generator gives every device the same noise, as
-    checks of the card against the CPU need."""
+    checks of the card against the CPU need. ``rows`` (start, total): mu
+    holds rows ``start:start + B`` of a batch of ``total``; the noise of
+    the whole batch is drawn and those rows taken, so a rank of a
+    data-parallel group draws what one process would."""
     std = torch.exp(0.5 * logvar)
-    eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
+    shape = mu.shape if rows is None else (rows[1], *mu.shape[1:])
+    eps = torch.randn(shape, generator=generator, dtype=mu.dtype,
                       device=generator.device)
+    if rows is not None:
+        eps = eps[rows[0]:rows[0] + mu.shape[0]]
     return mu + eps.to(mu.device) * std
 
 
@@ -333,10 +386,13 @@ def elbo_loss(
     capacity_mode: str = "abs",
     step: int = 0,
     spatial_free_bits: Optional[float] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ELBO with the reference's reduction: per-sample sums, divided by
     the effective batch size ``mask.sum()`` (``mask`` (B,) drops padded
-    rows). Returns (total, recon, kl) scalars.
+    rows). Returns (total, recon, kl) scalars. Under a ``mesh`` the sums
+    and ``mask.sum()`` are the global batch's (``parallel.global_value``:
+    the global value, this rank's share of the gradient).
 
     Recon is BCE-with-logits or MSE (on sigmoid(logits) when
     ``mse_use_sigmoid``); KL is per-dim, clamped below by ``free_bits``
@@ -347,23 +403,28 @@ def elbo_loss(
     """
     if mask is None:
         mask = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
-    denom = torch.clamp_min(mask.sum(), 1.0)
     axes = tuple(range(1, x.ndim))
     if recon_loss == "bce":
         lg = x_logits
         per = torch.clamp_min(lg, 0) - lg * x + torch.log1p(
             torch.exp(-lg.abs()))
-        recon = (per.sum(axes) * mask).sum() / denom
     else:
         pred = torch.sigmoid(x_logits) if mse_use_sigmoid else x_logits
-        recon = (((pred - x) ** 2).sum(axes) * mask).sum() / denom
+        per = (pred - x) ** 2
+    recon_sum = (per.sum(axes) * mask).sum()
 
     kl_per = -0.5 * (1.0 + logvar - mu ** 2 - torch.exp(logvar))
     if topology == "flat" and free_bits is not None:
         kl_per = torch.clamp_min(kl_per, free_bits)
     elif topology == "spatial" and spatial_free_bits is not None:
         kl_per = torch.clamp_min(kl_per, spatial_free_bits)
-    kl = (kl_per.sum(tuple(range(1, mu.ndim))) * mask).sum() / denom
+    kl_sum = (kl_per.sum(tuple(range(1, mu.ndim))) * mask).sum()
+    n = mask.sum()
+    recon_sum, kl_sum, n = global_value(torch.stack([recon_sum, kl_sum, n]),
+                                        mesh)
+    denom = torch.clamp_min(n, 1.0)
+    recon = recon_sum / denom
+    kl = kl_sum / denom
 
     if topology == "flat" and capacity_max > 0 and capacity_anneal_steps > 0:
         progress = min(1.0, step / max(1, capacity_anneal_steps))

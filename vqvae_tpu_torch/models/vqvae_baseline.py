@@ -17,6 +17,8 @@ product and argmin of ``|x|^2 - 2 x.e + |e|^2``, the JAX formula; ties take
 the first index), ``ema_update`` (Laplace smoothing, NaN and clamp
 guards), ``straight_through``, ``commitment_loss``, ``reseed_dead_codes``
 and ``perplexity``. Randomness comes from explicit ``torch.Generator``s.
+Under a data-parallel ``mesh`` ``ema_update`` sums the codes' counts and
+latent sums over ranks, so every rank keeps the global batch's codebook.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Tuple
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import all_reduce_sum
 
 
 class ResBlock(nn.Module):
@@ -147,14 +151,17 @@ def quantize(cb: CodebookState, z_e: torch.Tensor
 
 
 def ema_update(cb: CodebookState, z_e: torch.Tensor, idx: torch.Tensor,
-               decay: float = 0.99, eps: float = 1e-5) -> CodebookState:
+               decay: float = 0.99, eps: float = 1e-5,
+               mesh=None) -> CodebookState:
     """One EMA codebook update with Laplace smoothing and the NaN / clamp
-    guards."""
+    guards; under a ``mesh`` the counts and sums of the global batch."""
     n_codes, code_dim = cb.embed.shape
     flat = z_e.reshape(-1, code_dim).float()
     flat_idx = idx.reshape(-1)
     counts = torch.bincount(flat_idx, minlength=n_codes).float()
     embed_sum = torch.zeros_like(cb.embed).index_add_(0, flat_idx, flat)
+    both = all_reduce_sum(torch.cat([counts[:, None], embed_sum], 1), mesh)
+    counts, embed_sum = both[:, 0], both[:, 1:]
 
     cluster_size = cb.cluster_size * decay + counts * (1.0 - decay)
     embed_avg = cb.embed_avg * decay + embed_sum * (1.0 - decay)

@@ -20,7 +20,9 @@ from scipy import sparse
 
 from .. import native
 from ..device import resolve_device
-from .ell import BucketedGraph, multi_source_shortest_paths_ell
+from ..parallel.mesh import all_gather_rows
+from .ell import (BucketedGraph, multi_source_shortest_paths_ell,
+                  source_columns)
 from .shortest_paths import EdgeList, multi_source_shortest_paths
 
 
@@ -53,7 +55,8 @@ def _native_ok() -> bool:
 
 def multi_source_distances(W_or_graph, sources: np.ndarray,
                            backend: str = "auto", d0=None,
-                           device_out: bool = False, device=None):
+                           device_out: bool = False, device=None,
+                           mesh=None):
     """(N, K) float32 distances from each of K sources to all nodes.
 
     ``W_or_graph``: a scipy sparse matrix, a ``BucketedGraph`` or an
@@ -61,7 +64,11 @@ def multi_source_distances(W_or_graph, sources: np.ndarray,
     ``d0``: per-entry upper bounds warm-starting the device relaxation
     (the host Dijkstra, exact from scratch, ignores it). ``device_out``
     returns the device tensor instead of numpy. ``device`` places the
-    bucketed graph built from a CSR input.
+    bucketed graph built from a CSR input. ``mesh`` shards the bucketed
+    relaxation's K axis: with ``device_out`` each rank gets its columns
+    (``ell.source_columns``), else the columns are gathered (every rank
+    returns all K). The host Dijkstra and the edge-list engine run whole
+    on every rank.
     """
     sources = np.asarray(sources)
     is_csr = sparse.issparse(W_or_graph)
@@ -85,5 +92,9 @@ def multi_source_distances(W_or_graph, sources: np.ndarray,
         graph = (W_or_graph if isinstance(W_or_graph, BucketedGraph)
                  else BucketedGraph.from_csr(W_or_graph,
                                              device=resolve_device(device)))
-        d = multi_source_shortest_paths_ell(graph, sources, d0=d0)
+        d = multi_source_shortest_paths_ell(graph, sources, d0=d0,
+                                            mesh=mesh)
+        c0, c1 = source_columns(len(sources), mesh)
+        if not device_out and c1 - c0 < len(sources):
+            d = all_gather_rows(d.T.contiguous(), len(sources), mesh).T
     return d if device_out else d.cpu().numpy()

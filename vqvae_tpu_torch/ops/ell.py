@@ -30,6 +30,15 @@ when some in-neighbor of its rows is marked in either. JAX decides that
 on the device (``lax.cond``); this eager loop reads the decision back, one
 host read a chunk, so the skipped chunks, the sweep count and the relaxed
 chunks per bucket are JAX's exactly, and so is the fixed point.
+
+``mesh`` (``parallel.Mesh``) shards the K (source) axis when the world
+size divides K (JAX's ``P(None, "data")``; an uneven K stays replicated):
+each rank relaxes its own block of columns (``source_columns``) to the
+exact fixed point. Every operation is elementwise in K, so no collective
+runs during the sweeps; the ranks may sweep different numbers of times
+and ``ELL_STATS`` records the largest. With ``active`` each rank skips
+chunks by its own columns' frontier: the distances are the same, the
+chunk counts are the rank's own.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import torch
 
 from .. import native
 from ..device import resolve_device
+from ..parallel.mesh import all_reduce, shard_range
 
 _INF = np.float32(np.inf)
 
@@ -288,21 +298,36 @@ def _ell_run(graph: BucketedGraph, d0: torch.Tensor, max_iters: int,
     return d_perm[graph.inv_perm], it, counts
 
 
+def source_columns(k: int, mesh) -> Tuple[int, int]:
+    """(start, stop) of the source columns this rank relaxes: its block of
+    K when the mesh shards it (K divisible by the world size), else all."""
+    if mesh is None or k % mesh.world_size:
+        return 0, k
+    return shard_range(k, mesh)
+
+
 def multi_source_shortest_paths_ell(graph: BucketedGraph, sources,
                                     d0: Optional[torch.Tensor] = None,
                                     max_iters: Optional[int] = None,
                                     active: bool = False,
-                                    return_iters: bool = False):
+                                    return_iters: bool = False,
+                                    mesh=None):
     """(N, K) distances (a tensor on ``graph.device``) from each of K
     sources, by bucketed Gauss-Seidel relaxation.
 
     ``d0``: optional (N, K) per-entry upper bounds to warm-start from (the
     cold start is +inf everywhere, 0 at each source's own column).
     ``active``: chunk-level frontier skipping (see the module notes).
-    ``return_iters`` also returns the sweep count."""
+    ``return_iters`` also returns the sweep count. ``mesh``: shard K over
+    its ranks; each rank then returns its columns ``source_columns(K,
+    mesh)`` only, and ``d0`` may hold all K columns or just those."""
     dev = graph.device
     sources = torch.as_tensor(np.asarray(sources), dtype=torch.int64,
                               device=dev)
+    c0, c1 = source_columns(int(sources.shape[0]), mesh)
+    if d0 is not None and d0.shape[1] == sources.shape[0]:
+        d0 = d0[:, c0:c1]
+    sources = sources[c0:c1]
     k = int(sources.shape[0])
     n = graph.n_nodes
     if d0 is None:
@@ -312,6 +337,7 @@ def multi_source_shortest_paths_ell(graph: BucketedGraph, sources,
         max_iters = n + 1
     t0 = time.perf_counter()
     d, iters, counts = _ell_run(graph, d0, max_iters, active)
+    iters = int(all_reduce(torch.tensor([iters]), mesh, "max")[0])
     dt = time.perf_counter() - t0
     # relaxed chunk of bucket b: a (K,) distance row + weight + index per
     # edge slot (+ two mask bytes when active), read + write of its

@@ -62,12 +62,15 @@ def build_knn_graph(
     sym: str = "mutual",
     approx: bool = False,
     device=None,
+    mesh=None,
 ) -> Tuple[sparse.csr_matrix, Dict[str, np.ndarray]]:
     """kNN graph. Returns (CSR adjacency, {"distances", "indices"}).
 
     k is capped at N-1, the self-neighbor is stripped, the diagonal is
     zero and the matrix is symmetrized per ``sym``. ``approx`` takes the
-    fused selection route (kernels K1/K2 on the GPU).
+    fused selection route (kernels K1/K2 on the GPU). ``mesh`` shards the
+    kNN's query axis (``knn_search``); the assembly then runs on every
+    rank, as JAX multi-host runs it on every process.
     """
     z = np.asarray(z, np.float32)
     if z.ndim != 2:
@@ -83,7 +86,7 @@ def build_knn_graph(
                 {"distances": np.empty((n, 0), np.float32),
                  "indices": np.empty((n, 0), dtype=int)})
     dists, idxs = knn_search(z, min(k_eff + 1, n), metric=metric,
-                             approx=approx, device=device)
+                             approx=approx, device=device, mesh=mesh)
     dists, idxs = _strip_self(dists, idxs, n)
     W = _assemble(dists, idxs, n, mode, sym)
     return W, {"distances": dists.astype(np.float32, copy=False),
@@ -98,6 +101,7 @@ def build_knn_graph_auto(
     sym: str = "mutual",
     force_method: Optional[str] = None,
     device=None,
+    mesh=None,
 ) -> Tuple[sparse.csr_matrix, Dict[str, np.ndarray]]:
     """Reference-compatible entry point: ``force_method="approx"`` takes
     the fused selection, ``"host"`` the blocked numpy exact kNN (the
@@ -107,7 +111,8 @@ def build_knn_graph_auto(
     if force_method == "host":
         return _build_knn_graph_host(z, k, metric, mode, sym, device)
     return build_knn_graph(z, k=k, metric=metric, mode=mode, sym=sym,
-                           approx=(force_method == "approx"), device=device)
+                           approx=(force_method == "approx"), device=device,
+                           mesh=mesh)
 
 
 def _build_knn_graph_host(z, k, metric, mode, sym, device=None):

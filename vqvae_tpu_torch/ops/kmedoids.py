@@ -18,6 +18,17 @@ Each distance pass picks its backend by work (``GraphHandle.choose``): the
 native host Dijkstra for small work, the device ELL relaxation otherwise;
 an ``EdgeList`` graph always relaxes on its device by edge-list
 Bellman-Ford.
+
+``mesh`` (``parallel.Mesh``) shards the device passes' K axis as JAX does:
+``_warm_d0`` builds only the rank's columns, the relaxation runs on them,
+and ``_round_update`` / ``assign_points_to_medoids`` reduce the per-row
+minimum and its column over ranks (``all_reduce_min_argmin``: among equal
+minima the lowest global column, as ``jnp.argmin``), so the round state
+and the host sampling's ``d_min`` are the same on every rank, and every
+rank draws the same sources from ``default_rng(seed)``. Decisions that
+depend on the host (backend by work, the BFS relabel) are agreed over
+ranks. An ``EdgeList`` graph is not sharded: its engine relaxes every
+column on each rank (``GraphHandle.shard_mesh`` is None).
 """
 from __future__ import annotations
 
@@ -29,8 +40,9 @@ import torch
 from scipy import sparse
 
 from ..device import resolve_device
+from ..parallel.mesh import agree_any, all_reduce_min_argmin
 from .backend import HOST_WORK_THRESHOLD, _native_ok, multi_source_distances
-from .ell import BucketedGraph
+from .ell import BucketedGraph, source_columns
 from .graph import bfs_node_order
 from .shortest_paths import EdgeList
 
@@ -49,8 +61,9 @@ class GraphHandle:
     is chosen per call by its work, not once per fit."""
 
     def __init__(self, W, backend: str = "auto", device=None,
-                 assume_symmetric: bool = False):
+                 assume_symmetric: bool = False, mesh=None):
         self._forced = None if backend == "auto" else backend
+        self.mesh = mesh
         self._csr = None
         self._bucketed = None
         self._edges = None
@@ -80,12 +93,14 @@ class GraphHandle:
             return self._forced
         work = float(self.nnz) * max(k_sources, 1)
         host_ok = self._csr is not None and _native_ok()
-        return "host" if (work < HOST_WORK_THRESHOLD and host_ok) else "device"
+        device = not (work < HOST_WORK_THRESHOLD and host_ok)
+        return "device" if agree_any(device, self.mesh) else "host"
 
     def distances(self, sources: np.ndarray, d0=None,
                   device_out: bool = False):
         """(N, K) distances; ``d0`` warm-starts the device relaxation (the
-        host Dijkstra ignores it), ``device_out`` keeps a device tensor."""
+        host Dijkstra ignores it), ``device_out`` keeps a device tensor
+        (under a sharding mesh, the rank's columns only)."""
         sources = np.asarray(sources)
         if self.choose(len(sources)) == "host":
             if self._csr is None:
@@ -96,7 +111,14 @@ class GraphHandle:
                                           d0=d0, device_out=device_out)
         self.ensure_device_graph()
         return multi_source_distances(self._bucketed, sources, "device",
-                                      d0=d0, device_out=device_out)
+                                      d0=d0, device_out=device_out,
+                                      mesh=self.mesh)
+
+    @property
+    def shard_mesh(self):
+        """The mesh whose ranks split a device pass's columns: none for an
+        edge-list graph, which relaxes every column on each rank."""
+        return None if self._edges is not None else self.mesh
 
     def ensure_device_graph(self) -> None:
         """Build the bucketed device graph now (otherwise built lazily in
@@ -112,9 +134,12 @@ class GraphHandle:
             self._build_s = time.perf_counter() - t0
 
 
-def _resolve(W, backend: str, device=None) -> Tuple[GraphHandle, int]:
+def _resolve(W, backend: str, device=None,
+             mesh=None) -> Tuple[GraphHandle, int]:
     handle = (W if isinstance(W, GraphHandle)
-              else GraphHandle(W, backend, device=device))
+              else GraphHandle(W, backend, device=device, mesh=mesh))
+    if mesh is not None and handle.mesh is None:
+        handle.mesh = mesh
     return handle, handle.n_nodes
 
 
@@ -154,21 +179,33 @@ def kpp_initialization(W: GraphLike, K: int, seed: int = 42,
     return centers
 
 
-def _warm_d0(d_min: torch.Tensor, sources: torch.Tensor) -> torch.Tensor:
+def _warm_d0(d_min: torch.Tensor, sources: torch.Tensor,
+             mesh=None) -> torch.Tensor:
     """(N, K) upper bounds: every column starts at the running
-    nearest-center distance, each source's own column at 0."""
+    nearest-center distance, each source's own column at 0. Under a
+    sharding mesh only this rank's columns (``source_columns``)."""
+    c0, c1 = source_columns(int(sources.shape[0]), mesh)
+    sources = sources[c0:c1]
     k = sources.shape[0]
     d0 = d_min[:, None].expand(d_min.shape[0], k).clone()
     d0[sources, torch.arange(k, device=d0.device)] = 0.0
     return d0
 
 
-def _round_update(d_new, d_min, assign, round_ids):
-    """Running min and argmin over a round's columns (ties to the first
-    column, as ``jnp.argmin``)."""
-    best = torch.amin(d_new, dim=1)
-    local = torch.argmin(d_new, dim=1)
-    assign = torch.where(best < d_min, round_ids[local], assign)
+def _min_argmin(d: torch.Tensor, k: int, mesh=None):
+    """Per-row minimum over the K columns and its global column (ties to
+    the first column, as ``jnp.argmin``); ``d`` holds this rank's columns
+    ``source_columns(k, mesh)``."""
+    c0, _ = source_columns(k, mesh)
+    best = torch.amin(d, dim=1)
+    col = torch.argmin(d, dim=1) + c0
+    return all_reduce_min_argmin(best, col, mesh)
+
+
+def _round_update(d_new, d_min, assign, round_ids, mesh=None):
+    """Running min and argmin over a round's columns."""
+    best, col = _min_argmin(d_new, int(round_ids.shape[0]), mesh)
+    assign = torch.where(best < d_min, round_ids[col], assign)
     return torch.minimum(d_min, best), assign
 
 
@@ -189,7 +226,8 @@ def _pick_schedule(K: int, width: int, schedule: str) -> List[int]:
 def kpp_parallel_initialization(W: GraphLike, K: int, seed: int = 42,
                                 rounds: int = 4, backend: str = "auto",
                                 return_assignment: bool = False,
-                                schedule: str = "flat", device=None):
+                                schedule: str = "flat", device=None,
+                                mesh=None):
     """Batched k-means|| initialization: R multi-source passes in all.
 
     With ``return_assignment`` the rounds' passes double as the final
@@ -197,9 +235,11 @@ def kpp_parallel_initialization(W: GraphLike, K: int, seed: int = 42,
     (centers, assign, dist). On the device path each round warm-starts
     from the running nearest-center distances (exact: the warm fixed point
     is min(dist(s, v), d_min(v))) and the round state stays on the device;
-    only d_min comes back per round for the host sampling.
+    only d_min comes back per round for the host sampling. ``mesh``
+    shards each device pass's columns (see the module notes).
     """
-    graph, n = _resolve(W, backend, device)
+    graph, n = _resolve(W, backend, device, mesh)
+    mesh = graph.shard_mesh
     rng = np.random.default_rng(seed)
     first = int(rng.integers(0, n))
     centers: List[int] = [first]
@@ -236,11 +276,11 @@ def kpp_parallel_initialization(W: GraphLike, K: int, seed: int = 42,
         t_pass = time.perf_counter()
         srcs = np.asarray(new_centers, np.int64)
         if use_device:
-            d0 = _warm_d0(d_min_dev, torch.from_numpy(srcs).to(dev))
+            d0 = _warm_d0(d_min_dev, torch.from_numpy(srcs).to(dev), mesh)
             d_new = graph.distances(srcs, d0=d0, device_out=True)
             d_min_dev, assign_dev = _round_update(
                 d_new, d_min_dev, assign_dev,
-                torch.from_numpy(round_ids).to(dev))
+                torch.from_numpy(round_ids).to(dev), mesh)
             d_min = d_min_dev.cpu().numpy()  # sync: the pass ends here
         else:
             d_new = graph.distances(srcs)
@@ -288,11 +328,17 @@ def kpp_parallel_initialization(W: GraphLike, K: int, seed: int = 42,
 
 
 def assign_points_to_medoids(W: GraphLike, medoids: np.ndarray,
-                             backend: str = "auto", device=None
+                             backend: str = "auto", device=None, mesh=None
                              ) -> Tuple[np.ndarray, np.ndarray]:
-    """One multi-source pass; returns (assign (N,), dist_to_assigned (N,))."""
+    """One multi-source pass; returns (assign (N,), dist_to_assigned (N,)).
+    A device pass reduces its minimum and column on the device (over the
+    ranks of a sharding mesh)."""
     medoids = np.asarray(medoids, np.int64)
-    graph, _ = _resolve(W, backend, device)
+    graph, _ = _resolve(W, backend, device, mesh)
+    if graph.choose(len(medoids)) == "device":
+        d = graph.distances(medoids, device_out=True)
+        dist, assign = _min_argmin(d, len(medoids), graph.shard_mesh)
+        return assign.cpu().numpy().astype(np.int64), dist.cpu().numpy()
     d = np.asarray(graph.distances(medoids))  # (N, K)
     assign = d.argmin(axis=1)
     return assign.astype(np.int64), d[np.arange(d.shape[0]), assign]
@@ -310,7 +356,7 @@ def fit_kmedoids(W: GraphLike, K: int = 512, init: str = "kpp",
                  seed: int = 42, kpp_rounds: int = 4,
                  kpp_schedule: str = "flat", backend: str = "auto",
                  reorder: bool = True, device=None,
-                 assume_symmetric: bool = False
+                 assume_symmetric: bool = False, mesh=None
                  ) -> Tuple[np.ndarray, np.ndarray, float]:
     """Graph K-medoids: init + one-shot assignment + QE (no Lloyd
     refinement, as the reference).
@@ -320,20 +366,21 @@ def fit_kmedoids(W: GraphLike, K: int = 512, init: str = "kpp",
     (sweep-count reduction); results map back to the original node ids.
     The threshold scales with the host's cores, and the node order changes
     which nodes the sampling picks, so parity runs pin ``reorder`` and
-    ``backend``.
+    ``backend``. ``mesh`` shards the device passes (see the module notes);
+    every rank returns the same result.
     """
     perm = None
     reorder_s = 0.0
-    if (reorder and sparse.issparse(W)
-            and float(W.nnz) * max(K, 1) >= HOST_WORK_THRESHOLD):
+    if (reorder and sparse.issparse(W) and agree_any(
+            float(W.nnz) * max(K, 1) >= HOST_WORK_THRESHOLD, mesh)):
         t0 = time.perf_counter()
         perm = bfs_node_order(W)
         W = W.tocsr()[perm][:, perm]
         reorder_s = time.perf_counter() - t0
     if sparse.issparse(W):  # symmetry survives the BFS permutation
         W = GraphHandle(W, backend, device=device,
-                        assume_symmetric=assume_symmetric)
-    graph, n = _resolve(W, backend, device)
+                        assume_symmetric=assume_symmetric, mesh=mesh)
+    graph, n = _resolve(W, backend, device, mesh)
     assign = dist = None
     if init == "kpp":
         medoids = np.asarray(kpp_initialization(graph, K, seed=seed),

@@ -14,6 +14,15 @@ Above ``device_max`` rows (Euclidean only) the search runs the native
 exact kNN on the host (``native.knn_exact``), as the JAX package's
 escape hatch does.
 
+``mesh`` (``parallel.Mesh``) shards the query axis as JAX's ``shard_map``
+does: each rank selects and re-ranks its contiguous block of every query
+block (``block // world_size`` rows) against the whole database, and the
+(N, k) results are all-gathered in row order. Per-row work does not depend
+on the block, so the result equals the unsharded one bit for bit. JAX
+derives its effective selection parameters from ``block // world_size``;
+here they depend on the database tile alone (the port has no ``sel_tile``),
+so every world size runs the same kernel, K1 or K2.
+
 Self-matches are included (graph assembly strips them). Euclidean
 distances are returned as true distances, cosine as ``1 - similarity`` on
 normalized vectors.
@@ -28,6 +37,7 @@ import torch
 
 from .. import native
 from ..device import resolve_device
+from ..parallel.mesh import all_gather_rows
 from .knn_select import CAND_LANES, dot_last, fused_select
 
 # last effective kNN configuration, recorded by knn_search for provenance
@@ -160,6 +170,7 @@ def knn_search(
     packed: bool = True,
     device: str | torch.device | None = None,
     device_max: int = 4_000_000,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """All-pairs kNN of the rows of ``z`` (N, D): (distances, indices),
     each (N, k) numpy, ``k`` capped at N, self-matches included.
@@ -172,6 +183,8 @@ def knn_search(
     ``query_block`` rows go to one ``fused_select`` call. Above
     ``device_max`` rows a Euclidean search runs the native exact kNN on
     the host instead (threaded, distances in its own summation order).
+    ``mesh``: shard the query axis over the process group's ranks (every
+    rank returns the whole result).
     """
     kernel = resolve_knn_kernel(approx, kernel)
     dev = resolve_device(device)
@@ -203,7 +216,10 @@ def knn_search(
     z_db = torch.zeros((n_db_pad, z.shape[1]), dtype=torch.float32,
                        device=dev)
     z_db[:n] = torch.from_numpy(np.ascontiguousarray(zn)).to(dev)
-    block = min(_round_up(n, query_tile), _round_up(query_block, query_tile))
+    n_shards = 1 if mesh is None else mesh.world_size
+    block_align = query_tile * n_shards
+    block = min(_round_up(n, block_align), _round_up(query_block, block_align))
+    local = block // n_shards  # query rows of one rank in one block
 
     if kernel == "fused":
         bins, packed = effective_select_params(db_tile, bins, packed)
@@ -216,11 +232,14 @@ def knn_search(
 
     dists = np.empty((n, k), np.float32)
     idxs = np.empty((n, k), np.int64)
+    rank = 0 if mesh is None else mesh.rank
     for s in range(0, n, block):
         e = min(s + block, n)
-        q = torch.zeros((block, z.shape[1]), dtype=torch.float32, device=dev)
-        q[:e - s] = z_db[s:e]
-        qv = torch.arange(block, device=dev) < (e - s)
+        qs = min(s + rank * local, e)  # this rank's rows of the block
+        qe = min(qs + local, e)
+        q = torch.zeros((local, z.shape[1]), dtype=torch.float32, device=dev)
+        q[:qe - qs] = z_db[qs:qe]
+        qv = torch.arange(local, device=dev) < (qe - qs)
         if kernel == "fused":
             cand_d, cand_i = fused_select(q, z_db, n, metric=metric,
                                           bins=bins, k_sel=k_sel,
@@ -230,6 +249,8 @@ def knn_search(
             d, i = _knn_block_exact(q, z_db, n, qv, k=k, metric=metric,
                                     query_tile=query_tile, db_tile=db_tile,
                                     margin=margin)
+        d = all_gather_rows(d, block, mesh)
+        i = all_gather_rows(i, block, mesh)
         dists[s:e] = d[:e - s].cpu().numpy()
         idxs[s:e] = i[:e - s].cpu().numpy().astype(np.int64)
     return dists, idxs

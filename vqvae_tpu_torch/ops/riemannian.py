@@ -32,6 +32,15 @@ analytic JVP FLOPs per sample, the wall seconds); the linearized decoder
 carries its ``jvp_flops_per_sample`` and ``conv_decoder_jvp_flops_per_sample``
 gives the conv decoder's. The nodal engine, which JAX does not record,
 counts each node's D basis JVPs as its samples.
+
+``mesh`` (``parallel.Mesh``) shards the work as JAX's ``shard_map`` shards
+its chunk axis: the number of chunks is padded to a multiple of the world
+size, each rank runs its contiguous block of chunks and the lengths are
+all-gathered in edge order. A chunk keeps its single-rank size, so every
+edge's length comes from the same products as at world size 1. The nodal
+engine shards its node chunks (the metrics are all-gathered) and its edge
+blocks alike. ``RIEM_STATS`` records the samples of every rank (the whole
+call's).
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import all_gather_rows, pad_to_multiple, shard_range
 
 _AUTO_DEFAULT_BATCH = 1024
 
@@ -215,38 +225,53 @@ def _chunk_norms(decode_fn, za: torch.Tensor, zb: torch.Tensor):
     return 0.5 * (norms[:za.shape[0]] + norms[za.shape[0]:])
 
 
+def _chunk_block(n_items: int, chunk: int, mesh) -> Tuple[int, int, int]:
+    """(start, stop, padded) items of this rank's block of ``chunk``-sized
+    chunks: the chunk count padded to a multiple of the world size, then
+    split in contiguous blocks (JAX's ``n_chunks`` padding)."""
+    n_chunks = pad_to_multiple(-(-n_items // chunk),
+                               1 if mesh is None else mesh.world_size)
+    c0, c1 = shard_range(n_chunks, mesh)
+    return min(c0 * chunk, n_items), min(c1 * chunk, n_items), \
+        n_chunks * chunk
+
+
 def edge_lengths_riemannian_indexed(decode_fn: Callable, z, rows: np.ndarray,
                                     cols: np.ndarray, batch_size: int = 4096,
-                                    device=None) -> np.ndarray:
+                                    device=None, mesh=None) -> np.ndarray:
     """Riemannian lengths of edges (rows[e], cols[e]) with endpoints
     gathered on the device from the latent table ``z``, ``batch_size``
-    edges per decoder pass. ``device`` defaults to ``decode_fn.device``."""
+    edges per decoder pass. ``device`` defaults to ``decode_fn.device``;
+    ``mesh`` shards the chunks over its ranks."""
     dev = resolve_device(device if device is not None
                          else getattr(decode_fn, "device", None))
     rows = np.asarray(rows)
     e = rows.shape[0]
     if e == 0:
         return np.empty((0,), np.float32)
+    es, ee, e_pad = _chunk_block(e, batch_size, mesh)
     z_t = torch.from_numpy(np.ascontiguousarray(z, np.float32)).to(dev)
-    r_t = torch.from_numpy(rows.astype(np.int64)).to(dev)
-    c_t = torch.from_numpy(np.asarray(cols).astype(np.int64)).to(dev)
-    out = torch.empty(e, dtype=torch.float32, device=dev)
+    r_t = torch.from_numpy(rows[es:ee].astype(np.int64)).to(dev)
+    c_t = torch.from_numpy(np.asarray(cols)[es:ee].astype(np.int64)).to(dev)
+    out = torch.empty(ee - es, dtype=torch.float32, device=dev)
     with torch.no_grad():
-        for s in range(0, e, batch_size):
+        for s in range(0, ee - es, batch_size):
             r, c = r_t[s:s + batch_size], c_t[s:s + batch_size]
             out[s:s + batch_size] = _chunk_norms(decode_fn, z_t[r], z_t[c])
+    out = all_gather_rows(out, e_pad, mesh)[:e]
     return out.cpu().numpy()
 
 
 def edge_lengths_riemannian(decode_fn: Callable, z_start, z_end,
                             batch_size: int = 512,
-                            device=None) -> np.ndarray:
+                            device=None, mesh=None) -> np.ndarray:
     """Riemannian lengths of E edges given by their endpoints, flat (E, D)
     or spatial (E, H, W, C); returns (E,) float32. ``batch_size`` edges go
     through one decoder linearization (both endpoints at once). The JAX
     package pads the last chunk with zero latents; in eval mode that
     padding changes no valid row, so the last chunk here is just shorter.
-    ``device`` defaults to ``decode_fn.device``."""
+    ``device`` defaults to ``decode_fn.device``; ``mesh`` shards the
+    chunks over its ranks."""
     z_start = np.asarray(z_start, np.float32)
     z_end = np.asarray(z_end, np.float32)
     if z_start.shape != z_end.shape:
@@ -254,14 +279,14 @@ def edge_lengths_riemannian(decode_fn: Callable, z_start, z_end,
     e = np.arange(z_start.shape[0])
     return edge_lengths_riemannian_indexed(
         decode_fn, np.concatenate([z_start, z_end]), e, e + len(e),
-        batch_size=batch_size, device=device)
+        batch_size=batch_size, device=device, mesh=mesh)
 
 
 def edge_lengths_riemannian_auto(decode_fn: Callable, z: np.ndarray,
                                  rows: np.ndarray, cols: np.ndarray,
                                  batch_size: int = _AUTO_DEFAULT_BATCH,
                                  engine: str = "auto",
-                                 device=None) -> np.ndarray:
+                                 device=None, mesh=None) -> np.ndarray:
     """Riemannian edge-length engine dispatch.
 
     ``engine``: ``auto`` — the linearized matmul decoder (``mlp``) when the
@@ -270,6 +295,7 @@ def edge_lengths_riemannian_auto(decode_fn: Callable, z: np.ndarray,
     (``mlp`` raises when the decoder cannot be linearized). The mlp
     engine's live buffers are small, so at the default ``batch_size`` it
     takes 16384 edges per pass; an explicit ``batch_size`` is kept.
+    ``mesh`` shards every engine's chunks over its ranks.
     """
     if engine not in ("auto", "mlp", "edgewise", "nodal"):
         raise ValueError(f"unknown Riemannian engine {engine!r}")
@@ -280,7 +306,7 @@ def edge_lengths_riemannian_auto(decode_fn: Callable, z: np.ndarray,
         t0 = time.perf_counter()
         out = edge_lengths_riemannian_nodal(decode_fn, z, rows, cols,
                                             batch_size=batch_size,
-                                            device=device)
+                                            device=device, mesh=mesh)
         d = int(np.shape(z)[-1])
         _record("nodal", int(np.shape(z)[0]) * d, conv_flops, t0)
         return out
@@ -297,11 +323,12 @@ def edge_lengths_riemannian_auto(decode_fn: Callable, z: np.ndarray,
         mlp_bs = 16384 if batch_size == _AUTO_DEFAULT_BATCH else batch_size
         out = edge_lengths_riemannian_indexed(
             mlp_fn, z.reshape(z.shape[0], -1), rows, cols,
-            batch_size=mlp_bs, device=device)
+            batch_size=mlp_bs, device=device, mesh=mesh)
         _record("mlp", 2 * len(rows), mlp_fn.jvp_flops_per_sample, t0)
         return out
     out = edge_lengths_riemannian_indexed(
-        decode_fn, z, rows, cols, batch_size=batch_size, device=device)
+        decode_fn, z, rows, cols, batch_size=batch_size, device=device,
+        mesh=mesh)
     _record("edgewise", 2 * len(rows), conv_flops, t0)
     return out
 
@@ -325,13 +352,17 @@ def _pullback_chunk(decode_fn, zb: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _pullback_metrics(decode_fn, z_t: torch.Tensor,
-                      batch_size: int) -> torch.Tensor:
+def _pullback_metrics(decode_fn, z_t: torch.Tensor, batch_size: int,
+                      mesh=None) -> torch.Tensor:
     n, d = z_t.shape
     bs = max(1, min(batch_size // max(d, 1), n))
-    out = torch.empty((n, d, d), dtype=torch.float32, device=z_t.device)
-    for s in range(0, n, bs):
-        out[s:s + bs] = _pullback_chunk(decode_fn, z_t[s:s + bs])
+    ns, ne, n_pad = _chunk_block(n, bs, mesh)
+    out = torch.empty((ne - ns, d, d), dtype=torch.float32,
+                      device=z_t.device)
+    for s in range(ns, ne, bs):
+        out[s - ns:s - ns + bs] = _pullback_chunk(decode_fn,
+                                                  z_t[s:min(s + bs, ne)])
+    out = all_gather_rows(out, n_pad, mesh)[:n]
     return out
 
 
@@ -364,25 +395,28 @@ def edge_lengths_riemannian_nodal(decode_fn: Callable, z: np.ndarray,
                                   rows: np.ndarray, cols: np.ndarray,
                                   batch_size: int = 1024,
                                   edge_block: int = 1_048_576,
-                                  device=None) -> np.ndarray:
+                                  device=None, mesh=None) -> np.ndarray:
     """Riemannian lengths of edges (rows[e], cols[e]) through per-node
     pullback metrics (the edgewise quantity up to float association),
     ``edge_block`` edges at a time; the metrics stay on the device.
-    ``device`` defaults to ``decode_fn.device``."""
+    ``device`` defaults to ``decode_fn.device``; ``mesh`` shards the node
+    chunks and the edge blocks over its ranks."""
     dev = resolve_device(device if device is not None
                          else getattr(decode_fn, "device", None))
     z = np.asarray(z, np.float32)
     rows = np.asarray(rows)
     e = rows.shape[0]
     z_t = torch.from_numpy(np.ascontiguousarray(z)).to(dev)
-    G = _pullback_metrics(decode_fn, z_t, batch_size)
+    G = _pullback_metrics(decode_fn, z_t, batch_size, mesh)
     if e == 0:
         return np.empty((0,), np.float32)
-    r_t = torch.from_numpy(rows.astype(np.int64)).to(dev)
-    c_t = torch.from_numpy(np.asarray(cols).astype(np.int64)).to(dev)
-    out = torch.empty(e, dtype=torch.float32, device=dev)
+    es, ee, e_pad = _chunk_block(e, edge_block, mesh)
+    r_t = torch.from_numpy(rows[es:ee].astype(np.int64)).to(dev)
+    c_t = torch.from_numpy(np.asarray(cols)[es:ee].astype(np.int64)).to(dev)
+    out = torch.empty(ee - es, dtype=torch.float32, device=dev)
     with torch.no_grad():
-        for s in range(0, e, edge_block):
+        for s in range(0, ee - es, edge_block):
             out[s:s + edge_block] = _lengths_from_metrics(
                 G, z_t, r_t[s:s + edge_block], c_t[s:s + edge_block])
+    out = all_gather_rows(out, e_pad, mesh)[:e]
     return out.cpu().numpy()

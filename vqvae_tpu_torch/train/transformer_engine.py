@@ -21,6 +21,14 @@ epoch ``e``'s permutation from ``(seed + 1, e, 0)``, its dropout from
 ``seed``. The JAX engine's streams cannot be reproduced, so training
 agrees with it statistically.
 
+Data parallelism (``mesh`` with a process group): each rank takes its
+``shard_range`` of every global batch of the same permutation, the masked
+cross entropy divides by the global token count, and the gradients are
+summed over ranks; rank 0 alone writes checkpoints. Dropout draws on a
+rank follow that rank's generator (equal on every rank, applied to its
+own rows), so they differ from one process's draws; parity runs set
+dropout to 0.
+
 ``sample_autoregressive`` is the KV-cached sampler: prompts are primed
 one token at a time, logits divided by the temperature, the top-k filter
 keeps ties at the k-th value, and each token is a categorical draw.
@@ -38,6 +46,7 @@ import torch
 from ..device import resolve_device
 from ..models.transformer import (Transformer, cross_entropy_loss,
                                   transformer_init_)
+from ..parallel.mesh import get_mesh, shard_range, sum_gradients
 from ..utils.checkpoint import cpu_state_dict, save_checkpoint
 from .state import make_optimizer
 from .vae_engine import seeded_generator, to_device
@@ -55,11 +64,15 @@ class TransformerEngine:
         label_smoothing: float = 0.0,
         seed: int = 0,
         device=None,
+        mesh=None,
     ):
-        """``device`` None means CUDA (raises without it)."""
+        """``device`` None means CUDA (raises without it). ``mesh``
+        defaults to ``get_mesh()``: data parallel over the process group
+        when one is up."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.seed = seed
+        self.mesh = mesh if mesh is not None else get_mesh()
         self.label_smoothing = float(label_smoothing)
         self.opt = make_optimizer(self.model.parameters(), lr, weight_decay,
                                   "adamw", grad_clip_max_norm, cosine_t_max,
@@ -78,7 +91,12 @@ class TransformerEngine:
         y = labels if self.model.num_classes > 0 else None
         logits = self.model(x, y=y, generator=generator)
         return cross_entropy_loss(logits, targets, mask=mask,
-                                  label_smoothing=self.label_smoothing)
+                                  label_smoothing=self.label_smoothing,
+                                  mesh=self.mesh)
+
+    def local_rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n`` rows."""
+        return slice(*shard_range(n, self.mesh))
 
     def train_step(self, x, targets, labels, mask,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -86,6 +104,7 @@ class TransformerEngine:
         loss = self.loss(x, targets, labels, mask, generator)
         self.opt.zero_grad()
         loss.backward()
+        sum_gradients(self.model.parameters(), self.mesh)
         self.opt.step()
         self.step += 1
         return loss.detach()
@@ -104,7 +123,9 @@ class TransformerEngine:
         total = None
         n = 0
         for i, batch in enumerate(loader.epoch(epoch)):
-            x, y, lab, mask = (to_device(a, self.device) for a in batch)
+            mine = self.local_rows(len(batch[0]))
+            x, y, lab, mask = (to_device(np.asarray(a)[mine], self.device)
+                               for a in batch)
             x, y, lab = x.long(), y.long(), lab.long()
             if train:
                 loss = self.train_step(x, y, lab, mask, seeded_generator(
@@ -156,8 +177,9 @@ class TransformerEngine:
         best_epoch = best_step = 0
         bs = train_loader.batch_size
         x, y, lab, mask, n_steps, n_pad = self.device_dataset(train_loader)
+        mine = self.local_rows(bs)
         eval_idx = torch.arange(n_steps * bs, device=self.device).view(
-            n_steps, bs)
+            n_steps, bs)[:, mine]
 
         save_stride, write_est, last_write = 1, 0.0, 0
         for epoch in range(1, num_epochs + 1):
@@ -169,7 +191,7 @@ class TransformerEngine:
             drop_gen = seeded_generator(self.device, self.seed + 1, epoch, 1)
             losses = [self.train_step(x[ib], y[ib], lab[ib], mask[ib],
                                       drop_gen)
-                      for ib in perm[:n_steps * bs].view(n_steps, bs)]
+                      for ib in perm[:n_steps * bs].view(n_steps, bs)[:, mine]]
             tr_loss = float(torch.stack(losses).mean())
             t_train = time.perf_counter() - t_ep
             va_loss = float(torch.stack(

@@ -36,20 +36,34 @@ draws it where it is used: training from ``(seed + 1, epoch, 0)`` (the
 epoch path's permutation first, then the noise), evaluation noise from
 ``(seed + 1, epoch, 1)``. (The card's and the CPU's generators give
 different streams from one seed, and both differ from JAX's.)
+
+Data parallelism (``mesh``, a ``parallel.Mesh`` with a process group): as
+JAX shards each batch over its mesh, each rank takes its ``shard_range``
+of every global batch of the same permutation (drawn from a generator
+seeded alike on every rank) and the noise of the whole batch, taking its
+rows, so the ranks together draw what one process would. BatchNorm
+statistics, the loss's denominators and its capacity term are global
+(``models.vae``), the gradients are summed over ranks, and the NaN guard
+decides on the global loss, so every rank takes the same update. The
+evaluation's PSNR and SSIM are the global batch's. Latents are encoded
+sharded and gathered. Rank 0 alone writes checkpoints, latents, the
+reconstruction grid and metrics.
 """
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..data.loader import DataLoader
 from ..device import resolve_device
-from ..eval.metrics import psnr, ssim_simple
-from ..models.vae import VAE, flax_init_, reparameterize
+from ..eval.metrics import ssim_simple
+from ..models.vae import VAE, flax_init_, reparameterize, set_batchnorm_mesh
+from ..parallel.mesh import (all_gather_rows, all_reduce_sum, get_mesh,
+                             is_primary, shard_range, sum_gradients)
 from ..utils.checkpoint import cpu_state_dict, save_checkpoint
 from ..utils.images import save_image_grid
 from ..utils.latents import save_latents
@@ -117,15 +131,39 @@ class VAEEngine:
         steps_per_epoch: int = 1,
         seed: int = 0,
         device=None,
+        mesh=None,
     ):
-        """``device`` None means CUDA (raises without it)."""
+        """``device`` None means CUDA (raises without it). ``mesh``
+        defaults to ``get_mesh()``: data parallel over the process group
+        when one is up."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.seed = seed
+        self.mesh = mesh if mesh is not None else get_mesh()
+        set_batchnorm_mesh(self.model, self.mesh)
         self.opt = make_optimizer(self.model.parameters(), lr, weight_decay,
                                   optimizer, grad_clip_max_norm,
                                   cosine_t_max, steps_per_epoch)
         self.step = 0  # optimizer updates so far (the loss's capacity step)
+
+    def local_rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n`` rows."""
+        return slice(*shard_range(n, self.mesh))
+
+    def _noise_rows(self, n: int) -> Tuple[int, int]:
+        return self.local_rows(n).start, n
+
+    def _rows_of(self, images: torch.Tensor, noise_rows, generator):
+        """``noise_rows``, or the whole batch at world size 1; a rank of a
+        data-parallel group that draws noise must say where its rows
+        lie."""
+        if noise_rows is not None:
+            return noise_rows
+        if generator is not None and self.mesh.world_size > 1:
+            raise ValueError("a data-parallel step with noise needs "
+                             "noise_rows=(start, global batch rows) of this "
+                             "rank's block")
+        return 0, images.shape[0]
 
     def init_state(self) -> None:
         """Flax-default weights drawn from ``seed``."""
@@ -134,17 +172,22 @@ class VAEEngine:
     # -- steps ---------------------------------------------------------------
     def train_step(self, images: torch.Tensor, mask: torch.Tensor,
                    beta: float, generator: torch.Generator,
-                   nan_guard: bool = False) -> Dict[str, torch.Tensor]:
+                   nan_guard: bool = False,
+                   noise_rows=None) -> Dict[str, torch.Tensor]:
         """One optimizer step. ``nan_guard``: when the loss is not finite
         the gradients become zeros (decided on the device) and the
-        optimizer still steps, as the JAX epoch path does."""
+        optimizer still steps, as the JAX epoch path does. Under data
+        parallelism ``images`` are this rank's rows of the global batch
+        and ``noise_rows`` their (start, global rows)."""
         self.model.train()
-        x_logits, mu, logvar, _ = self.model(images, generator)
-        total, recon, kl = self.model.loss(images, x_logits, mu, logvar,
-                                           beta=beta, mask=mask,
-                                           step=self.step)
+        x_logits, mu, logvar, _ = self.model(
+            images, generator, self._rows_of(images, noise_rows, generator))
+        total, recon, kl = self.model.loss(
+            images, x_logits, mu, logvar, beta=beta, mask=mask,
+            step=self.step, mesh=self.mesh)
         self.opt.zero_grad()
         total.backward()
+        sum_gradients(self.model.parameters(), self.mesh)
         if nan_guard:
             finite = torch.isfinite(total.detach())
             with torch.no_grad():
@@ -159,20 +202,31 @@ class VAEEngine:
 
     @torch.no_grad()
     def eval_step(self, images: torch.Tensor, mask: torch.Tensor,
-                  beta: float, generator: torch.Generator
-                  ) -> Dict[str, torch.Tensor]:
+                  beta: float, generator: torch.Generator,
+                  noise_rows=None) -> Dict[str, torch.Tensor]:
         self.model.eval()
-        x_logits, mu, logvar, _ = self.model(images, generator)
+        x_logits, mu, logvar, _ = self.model(
+            images, generator, self._rows_of(images, noise_rows, generator))
         total, recon, kl = self.model.loss(images, x_logits, mu, logvar,
                                            beta=beta, mask=mask,
-                                           step=self.step)
+                                           step=self.step, mesh=self.mesh)
         x_rec = torch.sigmoid(x_logits) if self.model.apply_sigmoid \
             else x_logits
         x_rec = torch.clamp(x_rec, 0.0, 1.0)
+        # the global batch's PSNR and SSIM (``psnr`` and ``ssim_simple``
+        # with ``mask``) from summed squared errors, summed per-image SSIM
+        # and the valid rows
+        n_loc = mask.sum()
+        se = (((x_rec - images) ** 2).sum(tuple(range(1, images.ndim)))
+              * mask).sum()
+        ss = ssim_simple(x_rec, images, mask=mask) * torch.clamp_min(n_loc,
+                                                                     1.0)
+        se, ss, n = all_reduce_sum(torch.stack([se, ss, n_loc]), self.mesh)
+        n_per = float(np.prod(images.shape[1:]))
+        mse = torch.clamp_min(se / torch.clamp_min(n * n_per, 1.0), 1e-12)
         return {"loss": total, "recon": recon, "kl": kl,
-                "psnr": psnr(x_rec, images, mask=mask),
-                "ssim": ssim_simple(x_rec, images, mask=mask),
-                "n": mask.sum()}
+                "psnr": 10.0 * torch.log10(1.0 / mse),
+                "ssim": ss / torch.clamp_min(n, 1.0), "n": n}
 
     # -- device-resident epoch path -----------------------------------------
     def device_dataset(self, loader: DataLoader, batch_size: int):
@@ -196,12 +250,15 @@ class VAEEngine:
                     batch_size: int, generator: torch.Generator
                     ) -> torch.Tensor:
         """Steps over ``perm`` (indices into the padded rows), guarded;
-        returns the mean per-step (loss, recon, kl) on the device."""
+        returns the mean per-step (loss, recon, kl) on the device. Under
+        data parallelism each step takes this rank's rows of the batch."""
         sums = torch.zeros(3, device=self.device)
+        mine = self.local_rows(batch_size)
         for i in range(n_steps):
-            ib = perm[i * batch_size:(i + 1) * batch_size]
+            ib = perm[i * batch_size:(i + 1) * batch_size][mine]
             m = self.train_step(data[ib], mask_all[ib], beta, generator,
-                                nan_guard=True)
+                                nan_guard=True,
+                                noise_rows=self._noise_rows(batch_size))
             sums += torch.stack([m["loss"], m["recon"], m["kl"]])
         return sums / n_steps
 
@@ -212,9 +269,11 @@ class VAEEngine:
         """The padded rows in order; returns the device sums of (loss,
         recon, kl, PSNR * n, SSIM * n, n), n the batch's real rows."""
         sums = torch.zeros(6, device=self.device)
+        mine = self.local_rows(batch_size)
         for i in range(n_steps):
-            sl = slice(i * batch_size, (i + 1) * batch_size)
-            m = self.eval_step(data[sl], mask_all[sl], beta, generator)
+            sl = slice(i * batch_size + mine.start, i * batch_size + mine.stop)
+            m = self.eval_step(data[sl], mask_all[sl], beta, generator,
+                               self._noise_rows(batch_size))
             sums += torch.stack([m["loss"], m["recon"], m["kl"],
                                  m["psnr"] * m["n"], m["ssim"] * m["n"],
                                  m["n"]])
@@ -231,12 +290,14 @@ class VAEEngine:
         acc: Optional[Dict[str, torch.Tensor]] = None
         n_batches = 0
         for images, _, mask in loader.epoch(epoch):
-            x = to_device(images, self.device)
-            m = to_device(mask, self.device)
+            mine, rows = self.local_rows(len(mask)), \
+                self._noise_rows(len(mask))
+            x = to_device(images[mine], self.device)
+            m = to_device(mask[mine], self.device)
             if train:
-                out = self.train_step(x, m, beta, gen)
+                out = self.train_step(x, m, beta, gen, noise_rows=rows)
             else:
-                out = self.eval_step(x, m, beta, gen)
+                out = self.eval_step(x, m, beta, gen, noise_rows=rows)
                 out["psnr"] = out["psnr"] * out["n"]
                 out["ssim"] = out["ssim"] * out["n"]
             n_batches += 1
@@ -339,7 +400,7 @@ class VAEEngine:
                 best_epoch = epoch
                 # weights-only best.pt at the rate one write sustains,
                 # gated on epochs since the last write, as JAX's cadence
-                if checkpoint_dir is not None and (
+                if checkpoint_dir is not None and is_primary() and (
                         epoch - last_best_write >= save_stride
                         or epoch == num_epochs):
                     t_ck = time.perf_counter()
@@ -357,7 +418,7 @@ class VAEEngine:
                     print(f"[vae] early stopping at epoch {epoch}")
                     break
 
-        if checkpoint_dir is not None:
+        if checkpoint_dir is not None and is_primary():
             ckpt = Path(checkpoint_dir)
             save_checkpoint(ckpt / "best.pt", {"model_state_dict":
                                                _cpu(best_sd),
@@ -370,7 +431,7 @@ class VAEEngine:
         if save_latents_flag and output_dir is not None:
             self.dump_latents(train_loader, Path(output_dir) / "latents_train")
             self.dump_latents(val_loader, Path(output_dir) / "latents_val")
-        if output_dir is not None:
+        if output_dir is not None and is_primary():
             self._save_recon_grid(val_loader, Path(output_dir), logger)
         return self.model
 
@@ -378,19 +439,28 @@ class VAEEngine:
     @torch.no_grad()
     def dump_latents(self, loader: DataLoader, out_dir: Path) -> Path:
         """Encode the whole split in dataset order (so latents align with
-        labels and codes downstream); z is sampled from ``seed + 2``."""
+        labels and codes downstream); z is sampled from ``seed + 2``.
+        Under data parallelism each rank encodes its rows of each batch
+        and the rows are gathered; rank 0 writes."""
         self.model.eval()
         gen = seeded_generator(self.device, self.seed + 2)
         images = loader.split.images
         bs = loader.batch_size
         zs, mus, lvs = [], [], []
         for s in range(0, images.shape[0], bs):
-            x = to_device(images[s:s + bs], self.device)
+            b = min(bs, images.shape[0] - s)
+            mine = self.local_rows(b)
+            x = to_device(images[s + mine.start:s + mine.stop], self.device)
             mu, logvar = self.model.encode(x)
-            z = reparameterize(mu, logvar, gen)
+            z = reparameterize(mu, logvar, gen, rows=(mine.start, b))
+            z, mu, logvar = (all_gather_rows(t, b, self.mesh)
+                             for t in (z, mu, logvar))
             zs.append(z.cpu())
             mus.append(mu.cpu())
             lvs.append(logvar.cpu())
+        out_dir = Path(out_dir)
+        if not is_primary():
+            return out_dir / "latents.npz"
         return save_latents(out_dir, torch.cat(zs).numpy(),
                             torch.cat(mus).numpy(), torch.cat(lvs).numpy(),
                             loader.split.labels)

@@ -30,6 +30,16 @@ rate one write sustains).
 Randomness comes from ``torch.Generator``s on the engine's device seeded
 from ``(seed + 1, epoch, ...)``: the permutation, the bank draws and the
 reseed picks follow other streams than JAX's.
+
+Data parallelism (``mesh`` with a process group): each rank takes its
+``shard_range`` of every global batch of the same permutation. Every batch
+statistic is the global batch's, as JAX computes it under its mesh: the
+masked L1 denominator, the commitment loss and ``q_mse``, the EMA counts
+and sums, the code histogram (usage, perplexity). The bank's 256 rows are
+drawn over the global flattened batch from a generator every rank shares;
+each rank fills the rows it holds into a zero block and one all-reduce
+completes it. Gradients are summed over ranks; the dead-code picks are
+the same on every rank. Rank 0 alone writes checkpoints and grids.
 """
 from __future__ import annotations
 
@@ -42,9 +52,11 @@ import torch
 
 from ..device import resolve_device
 from ..models.vae import flax_init_
-from ..models.vqvae_baseline import (VQVAE, CodebookState, commitment_loss,
-                                     ema_update, quantize, reseed_dead_codes,
+from ..models.vqvae_baseline import (VQVAE, CodebookState, ema_update,
+                                     quantize, reseed_dead_codes,
                                      straight_through)
+from ..parallel.mesh import (all_reduce_sum, get_mesh, global_value,
+                             is_primary, shard_range, sum_gradients)
 from ..utils.checkpoint import save_baseline_checkpoint
 from ..utils.images import save_image_grid
 from .state import make_optimizer
@@ -67,11 +79,15 @@ class VQVAEEngine:
         bank_size: int = 8192,
         seed: int = 0,
         device=None,
+        mesh=None,
     ):
         """``device`` None means CUDA (raises without it). ``weight_decay``
-        is accepted and ignored: the optimizer is Adam."""
+        is accepted and ignored: the optimizer is Adam. ``mesh`` defaults
+        to ``get_mesh()``: data parallel over the process group when one
+        is up."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.mesh = mesh if mesh is not None else get_mesh()
         self.n_codes = n_codes
         self.beta = beta
         self.ema_decay = ema_decay
@@ -93,44 +109,71 @@ class VQVAEEngine:
                            device=self.device)
         return cb, bank
 
+    def local_rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n`` rows."""
+        return slice(*shard_range(n, self.mesh))
+
     # -- steps ---------------------------------------------------------------
     def _forward(self, cb: CodebookState, x: torch.Tensor,
                  mask: torch.Tensor):
+        """(loss, rec, vq, z_e, z_q, idx, global valid rows); the loss
+        terms are the global batch's (at world size 1, this batch's)."""
         z_e = self.model.encode(x)
         with torch.no_grad():
             z_q, idx = quantize(cb, z_e)
         x_rec = self.model.decode(straight_through(z_e, z_q))
         per = torch.abs(x_rec - x).mean(dim=(1, 2, 3))
-        rec = (per * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-        vq = commitment_loss(z_e, z_q, self.beta)
-        return rec + vq, rec, vq, z_e, z_q, idx
+        # commitment_loss's beta * mse(sg(z_q), z_e) over the global batch
+        sq = ((z_q.detach() - z_e.float()) ** 2).sum()
+        sums = global_value(torch.stack([
+            (per * mask).sum(), mask.sum(), sq,
+            torch.full_like(sq, float(z_e.numel()))]), self.mesh)
+        rec = sums[0] / torch.clamp_min(sums[1], 1.0)
+        vq = self.beta * (sums[2] / sums[3])
+        return rec + vq, rec, vq, z_e, z_q, idx, sums[1].detach()
 
-    def _metrics(self, loss, rec, vq, z_e, z_q, idx
+    def _metrics(self, loss, rec, vq, z_e, z_q, idx, n
                  ) -> Dict[str, torch.Tensor]:
+        """The step's metrics over the global batch; ``n`` (the global
+        valid rows) rides along for the epoch's weighting."""
         with torch.no_grad():
-            q_mse = torch.mean((z_q - z_e) ** 2)
             hist = torch.bincount(idx.reshape(-1),
                                   minlength=self.n_codes).float()
+            both = all_reduce_sum(torch.cat([
+                hist, ((z_q - z_e) ** 2).sum()[None],
+                hist.new_full((1,), float(z_e.numel()))]), self.mesh)
+            hist, q_mse = both[:-2], both[-2] / both[-1]
             usage = (hist > 0).float().mean()
             p = hist / torch.clamp_min(hist.sum(), 1.0)
             perplex = torch.exp(-(p * torch.log(p + 1e-12)).sum())
             return {"loss": loss.detach(), "rec": rec.detach(),
                     "vq": vq.detach(), "q_mse": q_mse, "perplex": perplex,
-                    "usage": usage, "dead": 1.0 - usage}
+                    "usage": usage, "dead": 1.0 - usage, "n": n}
 
     def train_step(self, cb: CodebookState, bank: torch.Tensor,
                    x: torch.Tensor, mask: torch.Tensor,
-                   generator: torch.Generator
+                   generator: torch.Generator, rows=None
                    ) -> Tuple[CodebookState, torch.Tensor,
                               Dict[str, torch.Tensor]]:
         """One step on images ``x`` in [-1, 1] (B, H, W, C) with row mask
         ``mask`` (B,); ``generator`` draws the bank's latents on its own
-        device. Returns (codebook, bank, metrics)."""
+        device. ``rows`` (start, global rows): ``x`` holds rows
+        ``start:start + B`` of a global batch, as under data parallelism,
+        where it must be given (``local_rows``); None means ``x`` is the
+        whole batch. Returns (codebook, bank, metrics)."""
+        if rows is None:
+            if self.mesh.world_size > 1:
+                raise ValueError(
+                    "train_step under data parallelism needs rows=(start, "
+                    "global batch rows) of this rank's block")
+            rows = (0, x.shape[0])
         self.model.train()
-        loss, rec, vq, z_e, z_q, idx = self._forward(cb, x, mask)
+        out = self._forward(cb, x, mask)
+        loss, z_e, idx = out[0], out[3], out[5]
         self.opt.zero_grad()
         loss.backward()
-        metrics = self._metrics(loss, rec, vq, z_e, z_q, idx)
+        sum_gradients(self.model.parameters(), self.mesh)
+        metrics = self._metrics(*out)
         finite = torch.isfinite(loss.detach())
         with torch.no_grad():
             for p in self.model.parameters():
@@ -141,16 +184,34 @@ class VQVAEEngine:
 
         with torch.no_grad():
             z_e = z_e.detach()
-            new = ema_update(cb, z_e, idx, self.ema_decay, self.ema_eps)
+            new = ema_update(cb, z_e, idx, self.ema_decay, self.ema_eps,
+                             mesh=self.mesh)
             cb = CodebookState(**{
                 k: torch.where(finite, v, getattr(cb, k))
                 for k, v in new.as_dict().items()})
-            flat = z_e.reshape(-1, z_e.shape[-1])
-            take = min(256, flat.shape[0], self.bank_size)
-            sel = torch.randperm(flat.shape[0], generator=generator,
-                                 device=generator.device)[:take]
-            bank = torch.cat([bank[take:], flat[sel.to(flat.device)]])
+            new = self._bank_rows(z_e, rows, generator)
+            bank = torch.cat([bank[new.shape[0]:], new])
         return cb, bank, metrics
+
+    def _bank_rows(self, z_e: torch.Tensor, rows,
+                   generator: torch.Generator) -> torch.Tensor:
+        """The latents that roll into the bank: min(256, latents, bank
+        size) rows of the global flattened batch drawn without
+        replacement; each rank fills the rows it holds into a zero block
+        and one all-reduce completes it (exact: one nonzero term per
+        row)."""
+        flat = z_e.reshape(-1, z_e.shape[-1])
+        per_image = z_e.shape[1] * z_e.shape[2]
+        n = rows[1] * per_image
+        take = min(256, n, self.bank_size)
+        sel = torch.randperm(n, generator=generator,
+                             device=generator.device)[:take].to(flat.device)
+        lo = rows[0] * per_image
+        mine = (sel >= lo) & (sel < lo + flat.shape[0])
+        out = torch.zeros((take, flat.shape[1]), dtype=flat.dtype,
+                          device=flat.device)
+        out[mine] = flat[sel[mine] - lo]
+        return all_reduce_sum(out, self.mesh)
 
     @torch.no_grad()
     def eval_step(self, cb: CodebookState, x: torch.Tensor,
@@ -184,27 +245,32 @@ class VQVAEEngine:
         perm = torch.randperm(n_steps * batch_size, generator=gen,
                               device=self.device)
         sums = torch.zeros(len(METRIC_KEYS) + 1, device=self.device)
+        mine = self.local_rows(batch_size)
+        rows = (mine.start, batch_size)
         for i in range(n_steps):
-            ib = perm[i * batch_size:(i + 1) * batch_size]
-            mask = mask_all[ib]
-            cb, bank, m = self.train_step(cb, bank, data[ib], mask, gen)
-            sums += self._weighted(m, mask)
+            ib = perm[i * batch_size:(i + 1) * batch_size][mine]
+            cb, bank, m = self.train_step(cb, bank, data[ib], mask_all[ib],
+                                          gen, rows)
+            sums += self._weighted(m)
         return cb, bank, sums
 
     @torch.no_grad()
     def eval_epoch(self, cb, data, mask_all, n_steps: int,
                    batch_size: int) -> torch.Tensor:
         sums = torch.zeros(len(METRIC_KEYS) + 1, device=self.device)
+        mine = self.local_rows(batch_size)
         for i in range(n_steps):
-            sl = slice(i * batch_size, (i + 1) * batch_size)
+            sl = slice(i * batch_size + mine.start,
+                       i * batch_size + mine.stop)
             sums += self._weighted(self.eval_step(cb, data[sl],
-                                                  mask_all[sl]),
-                                   mask_all[sl])
+                                                  mask_all[sl]))
         return sums
 
     @staticmethod
-    def _weighted(m: Dict[str, torch.Tensor], mask: torch.Tensor):
-        bs = mask.sum()
+    def _weighted(m: Dict[str, torch.Tensor]):
+        """The step's metrics times its (global) valid rows, then the
+        rows."""
+        bs = m["n"]
         return torch.cat([torch.stack([m[k] for k in METRIC_KEYS]) * bs,
                           bs[None]])
 
@@ -261,7 +327,8 @@ class VQVAEEngine:
                             "train_steps": tr_steps,
                             "train_seconds": t_train})
                 logger.log_metrics(row, step=ep)
-            if output_dir is not None and ep % samples_every == 0:
+            if (output_dir is not None and ep % samples_every == 0
+                    and is_primary()):
                 self.save_recons(cb, val_loader, Path(output_dir), ep)
             dt_epoch = time.perf_counter() - t_ep
             if checkpoint_dir is not None and (ep % save_stride == 0

@@ -46,6 +46,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.vae import VAE
+from ..parallel.mesh import is_primary
 
 # VAE constructor arguments a stage config may carry; training-only keys
 # (free bits, capacity annealing) are not read by the ported stages
@@ -279,8 +280,11 @@ def load_vae_state_dict(model: VAE, state_dict: Mapping[str, torch.Tensor]
 
 def save_checkpoint(path: str | Path, payload: Mapping[str, Any]) -> Path:
     """``torch.save`` to a temporary file beside ``path``, then rename it
-    into place, so a reader never sees a half-written checkpoint."""
+    into place, so a reader never sees a half-written checkpoint. Under a
+    process group only rank 0 writes (the ranks share one filesystem)."""
     path = Path(path)
+    if not is_primary():
+        return path
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
     torch.save(dict(payload), tmp)

@@ -3,7 +3,8 @@
 
 Every run directory gets ``metrics.csv``, ``metrics.jsonl`` and
 ``params.yaml``; when an ``mlflow`` installation and a tracking URI are
-present, the same calls mirror into it (import-gated).
+present, the same calls mirror into it (import-gated). Under a process
+group only rank 0 writes; the other ranks' loggers record nothing.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import yaml
 
+from ..parallel.mesh import is_primary
+
 
 class MetricsLogger:
     def __init__(
@@ -26,7 +29,9 @@ class MetricsLogger:
         tracking_uri: Optional[str] = None,
     ):
         self.out_dir = Path(out_dir)
-        self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.primary = is_primary()
+        if self.primary:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
         self.run_name = run_name
         self._csv_path = self.out_dir / "metrics.csv"
         self._jsonl_path = self.out_dir / "metrics.jsonl"
@@ -34,7 +39,7 @@ class MetricsLogger:
         self._t0 = time.perf_counter()
 
         self._mlflow = None
-        if tracking_uri:
+        if tracking_uri and self.primary:
             try:
                 import mlflow  # type: ignore
             except ImportError:
@@ -46,6 +51,8 @@ class MetricsLogger:
                 self._mlflow = mlflow
 
     def log_params(self, params: Dict[str, Any]) -> None:
+        if not self.primary:
+            return
         with open(self.out_dir / "params.yaml", "w") as f:
             yaml.safe_dump({k: _plain(v) for k, v in params.items()}, f,
                            sort_keys=False)
@@ -53,6 +60,8 @@ class MetricsLogger:
             self._mlflow.log_params(params)
 
     def log_metrics(self, metrics: Dict[str, Any], step: int) -> None:
+        if not self.primary:
+            return
         row = {"step": step,
                "wall_time_s": round(time.perf_counter() - self._t0, 3)}
         row.update({k: _plain(v) for k, v in metrics.items()})

@@ -76,9 +76,12 @@ class CompileStats:
 @contextlib.contextmanager
 def profile_trace(name: str = "trace") -> Iterator[None]:
     """Trace the block with ``torch.profiler`` when
-    ``VQVAE_TPU_PROFILE_DIR`` is set."""
+    ``VQVAE_TPU_PROFILE_DIR`` is set (under a process group, rank 0's
+    block only)."""
+    from ..parallel.mesh import is_primary
+
     out_dir = os.environ.get("VQVAE_TPU_PROFILE_DIR")
-    if not out_dir:
+    if not out_dir or not is_primary():
         yield
         return
     import torch
