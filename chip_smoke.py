@@ -81,7 +81,8 @@ Phases, each printed as it ends:
    within one Adam step, 2 lr, of the CPU's: where a gradient sits at
    rounding distance from 0, Adam's first step may take either sign). A
    control runs the card's step again with TF32 matmuls and convolutions
-   and must fail the gradient limit;
+   and must fail the gradient limit; then the card's step time and device
+   time at the preset's batch;
 8. the transformer at the preset's width on the card against the CPU,
    same weights, dropout 0: one train step on the same batch (loss within
    rtol 1e-5, each gradient tensor within ``TF_GRAD_LIMIT`` of its norm,
@@ -351,6 +352,21 @@ def kernel_times(fn, calls: int = 1):
         if parts:
             return parts
     fail("torch.profiler recorded no device time in three sessions")
+
+
+def step_times(step, reps: int = 20):
+    """(wall ms, [(kernel, device ms)]) of one call of ``step``: the wall
+    time over ``reps`` back-to-back calls after a warm-up, to a sync; the
+    device time by kernel (``kernel_times``, 5 calls)."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3, kernel_times(step, 5)
 
 
 def phase_device():
@@ -1168,6 +1184,18 @@ def phase_train_step_reference(seed: int = 42):
         f"within rtol 1e-4, all within 2 lr ({len(pre_norm)} pre-norm "
         f"biases skipped); BatchNorm statistics within rtol 1e-4")
 
+    # the card's step at the preset's batch: wall and device time (the
+    # cost of flax's BatchNorm statistics: tools/ab_vae_step)
+    eng = VAEEngine(copy.deepcopy(model), lr=lr, seed=seed, device="cuda")
+    batch = (images.cuda(), mask.cuda(), 1.0,
+             seeded_generator("cuda", seed, 1))
+    wall_ms, parts = step_times(lambda: eng.train_step(*batch))
+    device_ms = sum(ms for _, ms in parts)
+    log(f"VAE train step on the card (batch {images.shape[0]}): wall "
+        f"{wall_ms:.3f} ms ({1e3 / wall_ms:.2f} steps/s), device time "
+        f"{device_ms:.3f} ms ({device_ms / wall_ms:.1%} busy) in "
+        f"{len(parts)} kernel kinds")
+
 
 def phase_transformer_reference(seed: int = 42):
     """The transformer prior at the preset's width on the card against the
@@ -1289,15 +1317,7 @@ def phase_transformer_reference(seed: int = 42):
     # model's FLOPs at the f32 peak (matmuls and attention, backward 2x)
     eng = engine("cuda")
     batch = [a.cuda() for a in (x, t, lab, mask)]
-    eng.train_step(*batch, None)
-    torch.cuda.synchronize()
-    reps = 20
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        eng.train_step(*batch, None)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / reps * 1e3
-    parts = kernel_times(lambda: eng.train_step(*batch, None), 5)
+    step_ms, parts = step_times(lambda: eng.train_step(*batch, None))
     device_ms = sum(ms for _, ms in parts)
     mat = sum(p.numel() for k, p in model.named_parameters()
               if p.ndim == 2 and ("blocks" in k or k.startswith("head")))
@@ -1544,15 +1564,7 @@ def phase_baseline(work: Path):
         state[0], state[1], _ = eng.train_step(state[0], state[1], xb, mb,
                                                gen)
 
-    step()
-    torch.cuda.synchronize()
-    reps = 20
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / reps * 1e3
-    parts = kernel_times(step, 5)
+    step_ms, parts = step_times(step)
     device_ms = sum(ms for _, ms in parts)
     # the step's convolutions and products, forward and backward
     from torch.utils.flop_counter import FlopCounterMode
@@ -1722,21 +1734,21 @@ def _pre_norm_biases(model):
     return out
 
 
-def phase_vae_epoch(seed: int = 42, preset: str = PRESET,
-                    dataset: str = "fashionmnist", label: str = "phase 13",
-                    extras: bool = True, loss_limit: float = 1e-5):
-    """One epoch of the VAE's device-resident path at ``preset``'s full
-    width on the card against the CPU (same permutation and noise), the
-    epoch's mean losses within ``loss_limit`` relative; then, with
-    ``extras``, with a NaN pixel in a middle batch, and one 60,000-image
-    epoch of the epoch path against the per-batch path."""
+def vae_epoch_runs(seed: int = 42, preset: str = PRESET,
+                   dataset: str = "fashionmnist") -> SimpleNamespace:
+    """The runs of the VAE epoch check (phases 13 and 17c) at ``preset``'s
+    full width: the model drawn from ``seed``, its ``EPOCH_IMAGES``-image
+    synthetic split, the permutation, and ``epoch(dev, images, tf32=False,
+    state=None)``, one epoch of the device-resident path with the same
+    permutation and noise on every device, returning (epoch means, eval
+    sums, parameters, state dict); with ``state`` only the evaluation
+    runs, from those weights."""
     import copy
 
-    import numpy as np
     import torch
 
     from vqvae_tpu_torch.config import load_config
-    from vqvae_tpu_torch.data import get_data_loaders, load_dataset
+    from vqvae_tpu_torch.data import load_dataset
     from vqvae_tpu_torch.device import resolve_device
     from vqvae_tpu_torch.models import VAE, flax_init_
     from vqvae_tpu_torch.train import VAEEngine
@@ -1747,16 +1759,11 @@ def phase_vae_epoch(seed: int = 42, preset: str = PRESET,
     arch.pop("beta")
     bs, lr = int(cfg["data"]["batch_size"]), float(cfg["lr"])
     model = flax_init_(VAE(**arch), seeded_generator("cpu", seed))
-    pre_norm = _pre_norm_biases(model)
     split = load_dataset(dataset, root="no-such-dir", train=True,
                          synthetic_size=EPOCH_IMAGES, seed=seed)
     n_steps = -(-EPOCH_IMAGES // bs)
     perm = torch.randperm(n_steps * bs,
                           generator=torch.Generator().manual_seed(seed))
-    middle = perm[bs:2 * bs]
-    if not (middle >= EPOCH_IMAGES).any():
-        fail(f"{label}: the permutation put no padding row in the middle "
-             "batch")
 
     def engine(dev):
         return VAEEngine(copy.deepcopy(model), lr=lr,
@@ -1766,8 +1773,6 @@ def phase_vae_epoch(seed: int = 42, preset: str = PRESET,
                          steps_per_epoch=n_steps, seed=seed, device=dev)
 
     def epoch(dev, images, tf32=False, state=None):
-        """(epoch means, eval sums, parameters, state dict); with ``state``
-        only the evaluation runs, from those weights."""
         eng = engine(dev)
         loader = SimpleNamespace(split=SimpleNamespace(images=images))
         data, mask, steps, _ = eng.device_dataset(loader, bs)
@@ -1790,6 +1795,41 @@ def phase_vae_epoch(seed: int = 42, preset: str = PRESET,
                 {k: v.detach().cpu() for k, v in
                  eng.model.state_dict().items()})
 
+    return SimpleNamespace(model=model, split=split, perm=perm, bs=bs, lr=lr,
+                           n_steps=n_steps, engine=engine, epoch=epoch)
+
+
+def epoch_loss_gap(got, ref) -> float:
+    """The epoch check's loss gap: the largest of the (loss, recon, kl)
+    epoch means' differences, relative to the largest CPU mean."""
+    import numpy as np
+
+    return float(np.abs(got[0] - ref[0]).max() / np.abs(ref[0]).max())
+
+
+def phase_vae_epoch(seed: int = 42, preset: str = PRESET,
+                    dataset: str = "fashionmnist", label: str = "phase 13",
+                    extras: bool = True, loss_limit: float = 1e-5):
+    """One epoch of the VAE's device-resident path at ``preset``'s full
+    width on the card against the CPU (same permutation and noise), the
+    epoch's mean losses within ``loss_limit`` relative; then, with
+    ``extras``, with a NaN pixel in a middle batch, and one 60,000-image
+    epoch of the epoch path against the per-batch path."""
+    import numpy as np
+    import torch
+
+    from vqvae_tpu_torch.data import get_data_loaders
+    from vqvae_tpu_torch.train.vae_engine import seeded_generator
+
+    runs = vae_epoch_runs(seed, preset, dataset)
+    epoch, engine, perm, bs = runs.epoch, runs.engine, runs.perm, runs.bs
+    lr, n_steps, split = runs.lr, runs.n_steps, runs.split
+    pre_norm = _pre_norm_biases(runs.model)
+    middle = perm[bs:2 * bs]
+    if not (middle >= EPOCH_IMAGES).any():
+        fail(f"{label}: the permutation put no padding row in the middle "
+             "batch")
+
     def compare(label, got, ref, check_metrics=True):
         """The epoch check: its mean (loss, recon, kl) within
         ``loss_limit`` relative (unless ``check_metrics`` is off) and every parameter finite and
@@ -1797,9 +1837,9 @@ def phase_vae_epoch(seed: int = 42, preset: str = PRESET,
         rule, 99 % of the parameters within rtol 1e-4, holds for one step
         only (Adam's first step is lr * sign(g)); later steps divide the
         gradients' rounding residue by sqrt(v), so the share is logged."""
-        tr_g, va_g, par_g, _ = got
-        tr_c, va_c, par_c, _ = ref
-        loss_gap = float(np.abs(tr_g - tr_c).max() / np.abs(tr_c).max())
+        _, va_g, par_g, _ = got
+        _, va_c, par_c, _ = ref
+        loss_gap = epoch_loss_gap(got, ref)
         n_par = n_close = 0
         worst_lr = 0.0
         for key, p_c in par_c.items():

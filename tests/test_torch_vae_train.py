@@ -6,7 +6,11 @@ so it carries gradients across too. Spatial and flat models at small
 widths, 28 px, a batch of 8 whose last 3 rows are padding (mask 0, zero
 images, counted in the BatchNorm statistics as flax counts them).
 
-- train-mode forward (z = mu): within rtol 1e-4 / atol 1e-5;
+- train-mode forward (z = mu): within rtol 1e-4 / atol 1e-5, at one
+  torch thread and at the default count (the port's BatchNorm takes
+  flax's statistics, whose sums do not depend on the thread count; torch's
+  own batch norm kernel's did on the channels-last activations of the
+  encoder, and one thread put 2 of 6,272 logits past the limit);
 - ``elbo_loss`` on every branch: within rtol 1e-5;
 - gradients: within rtol 1e-4, or 2e-5 of the tensor's largest gradient.
   The loss sums over pixels, so gradients reach ~10, and the f32 sums over
@@ -26,6 +30,7 @@ images, counted in the BatchNorm statistics as flax counts them).
   images: final val loss within 15 % of JAX's (training agrees
   statistically: the noise and batch order differ).
 """
+import contextlib
 import json
 
 import jax
@@ -98,8 +103,27 @@ def _jax_loss(model, params, stats, x, mask):
     return total, (logits, mu, logvar, new["batch_stats"])
 
 
+@contextlib.contextmanager
+def _torch_threads(n):
+    """torch's intra-op thread count set to ``n`` (None: left as it is),
+    restored on exit, so no other test in this worker sees it."""
+    before = torch.get_num_threads()
+    if n is not None:
+        torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("threads", [1, None], ids=["1thread", "default"])
 @pytest.mark.parametrize("topology", ["spatial", "flat"])
-def test_train_forward_grads_and_batchnorm_match_jax(topology):
+def test_train_forward_grads_and_batchnorm_match_jax(topology, threads):
+    with _torch_threads(threads):
+        _check_train_forward_grads_and_batchnorm(topology)
+
+
+def _check_train_forward_grads_and_batchnorm(topology):
     model, variables, cfg = _setup(topology)
     port = _port(variables, cfg).train()
     assert all(isinstance(m, BatchNorm) for m in port.modules()

@@ -2,7 +2,8 @@
 
 The port's own copy of ``vqvae_tpu/config.py`` (same contract, same
 stage YAMLs under ``configs/``): plain ``yaml.safe_load`` per stage with
-dotted attribute access, defaulting and deep-merge for overrides.
+dotted attribute access, defaulting and deep-merge for overrides
+(``load_config``, ``Config.replace``), and ``save_config`` back to YAML.
 """
 from __future__ import annotations
 
@@ -46,13 +47,21 @@ class Config(Mapping):
             raise AttributeError(f"config has no key {key!r}") from e
 
     def __setattr__(self, key: str, value: Any) -> None:
-        raise TypeError("Config is read-only")
+        raise TypeError("Config is read-only; use .replace(**updates)")
 
     def get(self, key: str, default: Any = None) -> Any:
         try:
             return self[key]
         except KeyError:
             return default
+
+    def to_dict(self) -> dict:
+        """A deep copy of the underlying mapping."""
+        return copy.deepcopy(self._data)
+
+    def replace(self, **updates: Any) -> "Config":
+        """A new ``Config``: ``updates`` deep-merged into this one."""
+        return Config(_deep_merge(self._data, updates))
 
     def __repr__(self) -> str:
         return f"Config({self._data!r})"
@@ -79,3 +88,12 @@ def load_config(path: str | Path,
     if overrides:
         data = _deep_merge(data, overrides)
     return Config(data)
+
+
+def save_config(cfg: Config | Mapping, path: str | Path) -> None:
+    """Write ``cfg`` as YAML in its key order, making the parents."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    data = cfg.to_dict() if isinstance(cfg, Config) else dict(cfg)
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)

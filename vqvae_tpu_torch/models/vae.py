@@ -21,10 +21,13 @@ decoder is torch's ``(k-1-p, k-1-p+op)``, so the 28-px spatial head is
 ``ConvTranspose2d(k=4, s=2, p=3)``, the 32-px head ``p=1`` and the trunk
 ``k4 s2 p1``.
 
-BatchNorm follows flax, not torch: running statistics move by flax's
-momentum 0.99 (torch's 0.01) towards the *biased* batch variance, and the
-padded rows of a last batch count in the batch statistics, as they do
-there (``BatchNorm``).
+BatchNorm follows flax, not torch (``BatchNorm``): training takes the
+batch statistics from the per-channel count, sum and sum of squares with
+flax's fast variance ``max(E[x^2] - E[x]^2, 0)``, the padded rows of a
+last batch counted as they are there, and the running statistics move by
+flax's momentum 0.99 (torch's 0.01) towards that biased variance. The
+statistics, the normalization and its gradient are evaluated in float64
+and rounded once to float32.
 
 ``dtype`` (flax's): the parameters stay float32 and every conv, dense and
 transposed conv computes in ``dtype`` (``models/cast.py``); the norms
@@ -33,11 +36,14 @@ statistics; the encoder returns float32 mu and logvar and the decoder
 float32 logits, as the JAX model casts them.
 
 Data parallelism (``parallel.Mesh``): ``set_batchnorm_mesh`` makes every
-BatchNorm take its training statistics over the global batch, as flax's
-do under a sharded ``jit`` (count, sum and sum of squares all-reduced,
-flax's fast variance ``E[x^2] - E[x]^2``, padded rows included), and
+BatchNorm sum its count, sum and sum of squares over the global batch, as
+flax's statistics run under a sharded ``jit``; without a process group
+that sum is the identity, so one process and a mesh run the same code.
 ``elbo_loss(..., mesh=)`` divides by the global ``mask.sum()`` with the
 capacity term on the global KL.
+
+``decode_to_image``: sigmoid(decoder(z)) flattened to (B, pixels), the map
+whose Jacobian defines the pullback metric.
 """
 from __future__ import annotations
 
@@ -45,10 +51,9 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import all_reduce_sum_autograd, global_value
+from ..parallel.mesh import all_reduce_sum, global_value
 from .cast import (Conv2d, ConvTranspose2d, Linear, resolve_dtype,
                    set_compute_dtype)
 
@@ -57,15 +62,68 @@ from .cast import (Conv2d, ConvTranspose2d, Linear, resolve_dtype,
 _TRUNC_STD = 0.87962566103423978
 
 
-class BatchNorm(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` with flax's running-statistics update.
+class _TrainNorm(torch.autograd.Function):
+    """flax's training-mode normalization ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias`` of a float32 ``xf`` by its batch statistics
+    (float64 ``mean`` and ``inv`` = rsqrt(var + eps), ``xd`` = ``xf`` in
+    float64), with the gradient that autograd would take through flax's
+    statistics, in closed form: ``dx = scale * inv * (dy - E[dy] - xhat *
+    E[dy * xhat])``, the expectations over the global batch of ``n`` rows
+    (summed over ``mesh``'s ranks); the scale and shift get this rank's
+    sums. Both are evaluated in float64 and rounded once to float32: in
+    float32, ``x - mean`` and ``dy - E[dy] - ...`` cancel where a channel's
+    mean is large next to its spread, and expose the rounding of their
+    terms."""
 
-    Training normalizes by the batch mean and biased variance (as both
-    frameworks do) and then sets ``running = m * running + (1 - m) * batch``
-    with flax's momentum ``m`` = 0.99 and the biased batch variance; torch's
-    own update would use momentum 0.1 and the unbiased variance. Eval mode
-    is ``nn.BatchNorm2d``'s. State-dict names are unchanged. A half
-    precision input is normalized in float32 and the result cast back.
+    @staticmethod
+    def forward(ctx, xf, xd, mean, inv, weight, bias, n, mesh):
+        ctx.save_for_backward(xf, mean, inv, weight, n)
+        ctx.mesh = mesh
+        mul = inv * weight.double()
+        return torch.addcmul((bias.double() - mean * mul)[:, None, None],
+                             xd, mul[:, None, None]).float()
+
+    @staticmethod
+    def backward(ctx, dy):
+        xf, mean, inv, weight, n = ctx.saved_tensors
+        dy = dy.double()
+        xhat = torch.addcmul((-mean * inv)[:, None, None], xf.double(),
+                             inv[:, None, None])
+        local = _channel_sums(dy, dy * xhat)
+        sdy, sdyx = all_reduce_sum(local, ctx.mesh) / n
+        mul = weight.double() * inv
+        dx = torch.addcmul((-mul * sdy)[:, None, None], dy,
+                           mul[:, None, None])
+        dx = torch.addcmul(dx, xhat, (-mul * sdyx)[:, None, None])
+        db, dw = local.float()
+        return dx.float(), None, None, None, dw, db, None, None
+
+
+def _channel_sums(*ts: torch.Tensor) -> torch.Tensor:
+    """(len(ts), C): each float64 (B, C, H, W) tensor summed over B, H and
+    W. A float32 value or the product of two enters exactly, and the sum
+    of a batch carries no rounding that float32 can see, so the statistics
+    do not depend on the order of summation (the thread count, the
+    device)."""
+    return torch.stack([t.sum((0, 2, 3)) for t in ts])
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax's ``nn.BatchNorm`` with ``nn.BatchNorm2d``'s state-dict names.
+
+    Training (one path for one process and a mesh): the per-channel count,
+    sum and sum of squares in float64 (``_channel_sums``), summed over
+    ``self.mesh``'s ranks when one is set (``set_batchnorm_mesh``), and
+    flax's fast biased variance ``max(E[x^2] - E[x]^2, 0)``; then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` and its gradient
+    (``_TrainNorm``: the gradient reaches every rank's rows), rounded to
+    float32 and cast to the input's dtype; ``running = m * running + (1 -
+    m) * batch`` with flax's momentum ``m`` = 0.99 and the float32 mean
+    and variance (torch's update would use momentum 0.1 and the unbiased
+    variance).
+
+    Eval mode: ``nn.BatchNorm2d``'s for float32; a half precision input is
+    normalized by the running statistics in float32 and cast back.
     """
 
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.99):
@@ -74,19 +132,13 @@ class BatchNorm(nn.BatchNorm2d):
         self.mesh = None  # set_batchnorm_mesh: global training statistics
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.mesh is not None \
-                and self.mesh.distributed:
-            return self._forward_global(x)
-        if x.dtype != torch.float32:
-            return self._forward_flax(x)
-        if not self.training:
+        if self.training:
+            return self._forward_train(x)
+        if x.dtype == torch.float32:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
-        with torch.no_grad():
-            self._update_running(x.mean((0, 2, 3)),
-                                 x.var((0, 2, 3), unbiased=False))
-        return y
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean[:, None, None])
+                * mul[:, None, None] + self.bias[:, None, None]).to(x.dtype)
 
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         m = self.flax_momentum
@@ -94,45 +146,22 @@ class BatchNorm(nn.BatchNorm2d):
         self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         self.num_batches_tracked.add_(1)
 
-    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
-        """Training statistics over the global batch of ``self.mesh``:
-        per-channel count, sum and sum of squares summed over ranks (the
-        gradient reaches every rank's rows), flax's fast biased variance,
-        then flax's normalization in float32."""
+    def _forward_train(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        c = xf.shape[1]
-        count = xf.new_full((1,), float(xf.numel() // max(c, 1)))
-        stats = all_reduce_sum_autograd(
-            torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]),
-            self.mesh)
-        n = torch.clamp_min(stats[2 * c], 1.0)
-        mean = stats[:c] / n
-        var = torch.clamp_min(stats[c:2 * c] / n - mean * mean, 0.0)
         with torch.no_grad():
-            self._update_running(mean.detach(), var.detach())
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
-        return y.to(x.dtype)
-
-    def _forward_flax(self, x: torch.Tensor) -> torch.Tensor:
-        """A half precision input, as flax normalizes it: float32 batch
-        statistics with the fast variance ``max(E[x^2] - E[x]^2, 0)``,
-        ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, the
-        result rounded to the input's dtype."""
-        xf = x.float()
-        if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean,
-                                  0.0)
-            with torch.no_grad():
-                self._update_running(mean, var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
-        return y.to(x.dtype)
+            c = xf.shape[1]
+            xd = xf.double()
+            stats = all_reduce_sum(torch.cat([
+                _channel_sums(xd, xd * xd).reshape(-1),
+                xd.new_full((1,), float(xf.numel() // max(c, 1)))]),
+                self.mesh)
+            n = torch.clamp_min(stats[2 * c], 1.0)
+            mean = stats[:c] / n
+            var = torch.clamp_min(stats[c:2 * c] / n - mean * mean, 0.0)
+            self._update_running(mean.float(), var.float())
+        return _TrainNorm.apply(xf, xd, mean, torch.rsqrt(var + self.eps),
+                                self.weight, self.bias, n,
+                                self.mesh).to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -367,6 +396,13 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
     if rows is not None:
         eps = eps[rows[0]:rows[0] + mu.shape[0]]
     return mu + eps.to(mu.device) * std
+
+
+def decode_to_image(model: VAE, z: torch.Tensor) -> torch.Tensor:
+    """sigmoid(model.decode(z)) flattened to (B, pixels): the map whose
+    Jacobian defines the pullback metric (``ops.riemannian``)."""
+    img = torch.sigmoid(model.decode(z))
+    return img.reshape(img.shape[0], -1)
 
 
 def elbo_loss(

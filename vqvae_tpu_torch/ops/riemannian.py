@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.vae import decode_to_image
 from ..parallel.mesh import all_gather_rows, pad_to_multiple, shard_range
 
 _AUTO_DEFAULT_BATCH = 1024
@@ -77,8 +78,7 @@ def make_decoder_image_fn(model, topology: Optional[str] = None) -> Callable:
     def decode_fn(z):
         if topology == "spatial" and z.ndim == 2:
             z = z[:, None, None, :]
-        img = torch.sigmoid(model.decode(z))
-        return img.reshape(img.shape[0], -1)
+        return decode_to_image(model, z)
 
     decode_fn.model = model
     decode_fn.topology = topology
@@ -158,8 +158,7 @@ def _verify_affine_segments(model, segs) -> bool:
     z = torch.from_numpy(z.astype(np.float32)).to(_model_device(model))
     with torch.no_grad():
         mlp = _mlp_forward(segs, z)
-        conv = torch.sigmoid(model.decode(z[:, None, None, :]))
-        conv = conv.reshape(z.shape[0], -1)
+        conv = decode_to_image(model, z[:, None, None, :])
     return (mlp.shape == conv.shape
             and bool(torch.allclose(mlp, conv, rtol=1e-3, atol=1e-4)))
 

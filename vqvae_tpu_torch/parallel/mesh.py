@@ -258,29 +258,6 @@ def all_reduce_min_argmin(values: torch.Tensor, index: torch.Tensor,
     return _unsortable(key >> 32), (key & 0xFFFFFFFF).to(index.dtype)
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """Differentiable sum over ranks: the backward of a sum replicated on
-    every rank is the sum of the ranks' upstream gradients."""
-
-    @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
-        return all_reduce(t, mesh, "sum")
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce(g.contiguous(), ctx.mesh, "sum"), None
-
-
-def all_reduce_sum_autograd(t: torch.Tensor,
-                            mesh: Optional[Mesh]) -> torch.Tensor:
-    """``all_reduce_sum`` that carries gradients to every rank's input
-    (BatchNorm's global statistics)."""
-    if mesh is None or not mesh.distributed:
-        return t
-    return _AllReduceSum.apply(t, mesh)
-
-
 def global_value(local: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """The sum of ``local`` over ranks as a value, with the gradient of
     this rank's term only: a loss built from it has the global value on
