@@ -45,6 +45,13 @@ def _check_near_ties(z, cb, idx, ref_idx):
     (50, 16, 512),                  # fewer rows than one tile
     (12_800, 16, 512),              # 100 tiles: a grid under the 132 SMs
     (2000, 100, 300),               # padded width 128: chunks of 64 codes
+    (1_000, 128, 512),              # the vanilla quality stage's two calls
+    (10_000, 128, 512),
+    (100, 128, 512),                # 2 row tiles, 8 code slices
+    (30_000, 128, 512),             # 469 tiles: 4 slices of 2 chunks
+    (160_000, 128, 512),            # 2,500 tiles: one slice, no merge
+    (16_000, 32, 512),              # CIFAR's quality stage at D = 32
+    (777, 64, 515),                 # a ragged last chunk in every slice
 ])
 def test_kernel_matches_plain_version_on_card(cuda_device, n, d, k):
     rng = np.random.default_rng(n + d + k)
@@ -76,7 +83,7 @@ def test_exact_codes_and_host_arrays(cuda_device):
 def test_wrapper_raises_on_card_instead_of_falling_back(cuda_device):
     z = torch.zeros((8, 129), device=cuda_device)
     with pytest.raises(ValueError):
-        nearest_codes(z, z)  # wider than the kernel holds in registers
+        nearest_codes(z, z)  # wider than the kernel takes
 
 
 @pytest.mark.cuda
@@ -85,6 +92,10 @@ def test_wrapper_raises_on_card_instead_of_falling_back(cuda_device):
     (16, 512, 5, 500),    # warps 0 and 3
     (128, 200, 20, 70),   # warp 1 of chunk 0 and warp 0 of chunk 1
     (4, 3000, 1023, 2900),  # chunks 0 and 2
+    (128, 512, 63, 64),     # the last code of slice 0, the first of slice 1
+    (128, 512, 5, 500),     # slices 0 and 7
+    (32, 300, 127, 128),    # slices 1 and 2 at D = 32
+    (100, 130, 0, 129),     # the first and the last code, a ragged chunk
 ])
 def test_duplicate_codes_across_a_split_take_the_lower_index_on_card(
         cuda_device, d, k, lo, hi):
@@ -101,6 +112,32 @@ def test_duplicate_codes_across_a_split_take_the_lower_index_on_card(
     assert idx[0] == lo and ref_idx[0] == lo
     assert not (idx == hi).any()
     assert _check_near_ties(z, cbt, idx, ref_idx) <= 1e-2
+    same = idx == ref_idx
+    torch.testing.assert_close(dist[same], ref_dist[same], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(63, 64), (100, 400)])
+def test_duplicate_codes_across_chunks_of_one_slice_on_card(cuda_device, lo,
+                                                            hi):
+    # 160,000 rows fill the card with row tiles: the codes are not split,
+    # one block walks every chunk of 64 codes, and the lower index must win
+    # across chunks
+    rng = np.random.default_rng(lo + hi)
+    cb = rng.normal(size=(512, 128)).astype(np.float32)
+    cb[hi] = cb[lo]
+    z = rng.normal(size=(160_000, 128)).astype(np.float32)
+    z[::7] = cb[lo] + 1e-3 * rng.normal(size=z[::7].shape)
+    z[5] = cb[lo]
+    z = torch.from_numpy(z).to(cuda_device)
+    cbt = torch.from_numpy(cb).to(cuda_device)
+    idx, dist = nearest_codes(z, cbt)
+    ref_idx, ref_dist = nearest_codes_reference(z, cbt)
+    torch.cuda.synchronize()
+    assert idx[5] == lo and ref_idx[5] == lo
+    assert not (idx == hi).any()
+    assert _check_near_ties(z, cbt, idx, ref_idx) <= 1e-4
     same = idx == ref_idx
     torch.testing.assert_close(dist[same], ref_dist[same], rtol=1e-5,
                                atol=1e-5)

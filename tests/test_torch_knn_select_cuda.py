@@ -144,6 +144,46 @@ def test_duplicate_rows_and_ties_across_slots_and_blocks(cuda_device, packed,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("packed,bins", [(True, 1024), (False, 640)])
+def test_width_32_duplicates_and_ties_across_slots_and_blocks(cuda_device,
+                                                              packed, bins):
+    # D = 32, CIFAR's latent: the walks keep the query fragments in
+    # registers, 128 query rows a block. Every point three times (the next
+    # slot, and the same slot a block later), and 233 query rows: not a
+    # multiple of the block's rows
+    rng = np.random.default_rng(4)
+    n_blocks = 6
+    base = rng.normal(0, 1.0, size=(bins // 2, 32)).astype(np.float32)
+    z = np.zeros((n_blocks * bins, 32), np.float32)
+    for b in range(0, n_blocks, 2):
+        z[b * bins:(b + 1) * bins:2] = base
+        z[b * bins + 1:(b + 1) * bins:2] = base
+        z[(b + 1) * bins:(b + 2) * bins:2] = base
+    n = z.shape[0] - 5
+    zq = torch.from_numpy(np.concatenate([base[:150], z[7:90]])).to(
+        cuda_device)
+    zd = torch.from_numpy(z).to(cuda_device)
+    _assert_matches_plain(zq, zd, n, metric="euclidean", bins=bins, k_sel=29,
+                          packed=packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed,bins,n_query", [(True, 1024, 1000),
+                                                 (False, 640, 1000),
+                                                 (True, 1024, 4097)])
+def test_width_32_clustered_database(cuda_device, packed, bins, n_query):
+    # the CIFAR codebook stage's shape, cut: clustered rows at D = 32,
+    # k_sel 29, a padded tail
+    rows = 16 * bins
+    n = rows - 300
+    z = _database(n, rows, d=32, seed=12)
+    zq = torch.from_numpy(z[:n_query]).to(cuda_device)
+    zd = torch.from_numpy(z).to(cuda_device)
+    _assert_matches_plain(zq, zd, n, metric="euclidean", bins=bins, k_sel=29,
+                          packed=packed)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("packed,bins", [(True, 256), (False, 384)])
 def test_rows_past_the_candidate_list_settle_in_full(cuda_device, packed,
                                                      bins):

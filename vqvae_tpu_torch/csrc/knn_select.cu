@@ -43,11 +43,17 @@
 //   mma.sync.m16n8k8: each operand fragment is then one conflict-free
 //   128-bit load. The tail columns are kept apart: alpha = qa[D] per query
 //   row, beta = xa[D+1] per database row (+inf where padded).
-// - walk_kernel: a warp owns 32 query rows (two m16 fragments, held in
-//   registers at the codebook stage's D = 16) and its block's 32
-//   contiguous slots [s0, s0+32); a block of 4 warps walks the
+// - walk_kernel: a warp owns 32 query rows (two m16 fragments) and its
+//   block's 32 contiguous slots [s0, s0+32); a block walks the
 //   super-blocks sb = 0 .. np/bins-1, and step sb's tile is database rows
-//   sb*bins + s0 + [0, 32), brought by cp.async into an eight-stage ring.
+//   sb*bins + s0 + [0, 32), brought by cp.async into a ring of stages.
+//   At D <= 16 (2 k-steps, the codebook stage) and 24 < D <= 32 (4
+//   k-steps, CIFAR's latent) the query fragments stay in registers for
+//   the whole walk (32 or 64 registers a thread) and a block of 4 warps
+//   shares each tile; other widths read them from shared memory every
+//   step: there the fragments cost a 128-bit load per mma pair, and the
+//   query records (80 floats a row at D = 32) fill the SM's shared memory
+//   at 8 warps, too few to hide the tiles' latency.
 //   Each accumulator element keeps one (query row, slot) pair for the
 //   whole walk: its fragment starts at beta and adds q.x as three TF32
 //   products (lo*hi + hi*lo + hi*hi); plus alpha it is within eps =
@@ -61,7 +67,13 @@
 //   above, within eps (a slot's top-2 over part of its rows is no smaller
 //   than over all of them), so every row that can reach the answer has an
 //   approximation below V + 2 eps (packed: plus the truncation bucket).
-//   That is the row's threshold T.
+//   That is the row's threshold T. The warp reads the row once into
+//   registers (64 entries a lane at bins 1024); the k_sel-th smallest of
+//   the lanes' minima is at least the row's k_sel-th smallest entry, so
+//   for k_sel <= 32 only the entries at or below it (a few dozen) are
+//   gathered and selected from; more than kBoundCap of them, or k_sel >
+//   32, take the first design's k_sel passes over the row in memory
+//   (8 KB a row, bound by the cache's bandwidth).
 // - The second walk, over every super-block, recomputes the
 //   approximations and appends each row g below T to the query row's
 //   candidate list: about 2*k_sel rows of 983,040 at the codebook stage,
@@ -98,6 +110,10 @@ constexpr int kRowWarps = 8;          // warps (query rows) per block of
                                       // the per-row kernels
 constexpr int kPrepThreads = 256;
 constexpr int kCap = 384;             // candidate list length per query row
+constexpr int kBoundPer = 64;         // first-walk entries a lane holds in
+                                      // registers (2*bins <= 2048)
+constexpr int kBoundCap = 512;        // entries under the bound kernel's
+                                      // threshold it gathers at most
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -269,6 +285,15 @@ size_t walk_smem_floats(int rows, int ks, int stages, bool query_records) {
          stages * (stride * kSlots + kSlots);
 }
 
+// Blocks of walk_kernel an SM must hold, for the register budget: with
+// the query fragments in registers at ks = 2, three; at ks = 4 (64
+// registers of fragments) three for the second walk, two for the first,
+// whose two running minima per element take 64 more; from shared memory,
+// one (its ring and records fill the SM first).
+__host__ __device__ constexpr int walk_min_blocks(int ks, bool collect) {
+  return ks == 2 ? 3 : ks > 2 ? (collect ? 3 : 2) : 1;
+}
+
 // A warp owns 32 query rows (two m16 fragments) and the block's 32 slots;
 // KS > 0: the query fragments (KS k-steps) sit in registers for the whole
 // walk, else they are read from shared memory every step.
@@ -278,7 +303,7 @@ size_t walk_smem_floats(int rows, int ks, int stages, bool query_records) {
 // over all super-blocks (every = 1), appending every valid row whose
 // approximation is at most the query row's threshold to its list.
 template <int KS, int WARPS, int STAGES, bool COLLECT>
-__global__ void __launch_bounds__(32 * WARPS, KS ? 3 : 1)
+__global__ void __launch_bounds__(32 * WARPS, walk_min_blocks(KS, COLLECT))
 walk_kernel(Work work, int qp, int ks_count, int n_valid, int bins,
             int n_sb, int every, float* __restrict__ tb) {
   constexpr int kRows = 32 * WARPS;
@@ -501,17 +526,110 @@ __device__ float warp_kth_smallest(float* v, int n, int k, int lane) {
   return best;
 }
 
+// The k-th smallest of a warp's row of n <= 32 * kBoundPer values when k
+// <= 32, or +inf with *done false where this route does not settle it.
+// Each lane holds its n / 32 entries in registers. The k-th smallest of
+// the 32 lanes' minima, T, has k lanes' minima at or below it, so the
+// row's k-th smallest lies among the entries <= T: usually a few dozen.
+// Those are gathered into `buf` (kBoundCap floats), and rounds of a warp
+// minimum retire every entry equal to it until k are retired.
+__device__ float warp_kth_registers(const float* __restrict__ v, int n,
+                                    int k, int lane, float* buf,
+                                    bool* done) {
+  float r[kBoundPer];
+  float lm = INFINITY;
+#pragma unroll
+  for (int j = 0; j < kBoundPer; ++j) {
+    const int c = lane + 32 * j;
+    r[j] = c < n ? v[c] : INFINITY;
+    lm = fminf(lm, r[j]);
+  }
+  *done = false;
+  if (k > 32) return INFINITY;
+  // T: the lane minimum of rank k - 1 (ties by lane)
+  int rank = 0;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float o = __shfl_sync(0xffffffffu, lm, j);
+    rank += o < lm || (o == lm && j < lane);
+  }
+  const unsigned at_k = __ballot_sync(0xffffffffu, rank == k - 1);
+  const float t = __shfl_sync(0xffffffffu, lm, __ffs(at_k) - 1);
+  if (!(t < INFINITY)) return INFINITY;
+  int mine = 0;
+#pragma unroll
+  for (int j = 0; j < kBoundPer; ++j) mine += r[j] <= t;
+  int incl = mine;  // inclusive prefix over the lanes
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  if (total > kBoundCap) return INFINITY;
+  int at = incl - mine;
+#pragma unroll
+  for (int j = 0; j < kBoundPer; ++j) {
+    if (r[j] <= t) buf[at++] = r[j];
+  }
+  __syncwarp();
+  float w[kBoundCap / 32];
+#pragma unroll
+  for (int i = 0; i < kBoundCap / 32; ++i) {
+    const int c = lane + 32 * i;
+    w[i] = c < total ? buf[c] : INFINITY;
+  }
+  __syncwarp();
+  // total >= k finite entries: a round always retires one or more
+  for (;;) {
+    float m = INFINITY;
+#pragma unroll
+    for (int i = 0; i < kBoundCap / 32; ++i) m = fminf(m, w[i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    }
+    int c = 0;
+#pragma unroll
+    for (int i = 0; i < kBoundCap / 32; ++i) {
+      if (w[i] == m) {
+        ++c;
+        w[i] = INFINITY;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      c += __shfl_xor_sync(0xffffffffu, c, off);
+    }
+    if (c >= k) {
+      *done = true;
+      return m;
+    }
+    k -= c;
+  }
+}
+
 // A warp per query row: its threshold from the first walk's entries, and
-// an empty candidate list.
+// an empty candidate list. The k_sel-th smallest of the 2*bins entries
+// comes from registers (warp_kth_registers) where it can, else from
+// k_sel rounds over the row in memory (warp_kth_smallest).
 template <bool PACKED>
 __global__ void __launch_bounds__(32 * kRowWarps)
 bound_kernel(Work work, float* __restrict__ tb, int qp, int bins, int k_sel,
              int blk_bits) {
-  const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  __shared__ float s_buf[kRowWarps][kBoundCap];
+  const int wid = threadIdx.x >> 5;
+  const int row = blockIdx.x * kRowWarps + wid;
   if (row >= qp) return;  // warp-uniform
   const int lane = threadIdx.x & 31;
-  const float v = warp_kth_smallest(tb + (size_t)row * 2 * bins, 2 * bins,
-                                    k_sel, lane);
+  float* entries = tb + (size_t)row * 2 * bins;
+  bool done = false;
+  float v = INFINITY;
+  if (2 * bins <= 32 * kBoundPer) {
+    v = warp_kth_registers(entries, 2 * bins, k_sel, lane, s_buf[wid],
+                           &done);
+  }
+  if (!done) v = warp_kth_smallest(entries, 2 * bins, k_sel, lane);
   if (lane != 0) return;
   const float alpha = work.qterm[2 * (size_t)row];
   const float eps = row_eps(work, row);
@@ -791,15 +909,21 @@ cudaError_t launch_walk(const Work& work, int qp, int np, int ks,
   return cudaGetLastError();
 }
 
-// D in (8, 16], the codebook stage's width: the query fragments in
-// registers, 128 query rows a block and an eight-stage ring (a tile has
-// seven steps to arrive). Other widths up to 128: fragments in shared
+// D in (8, 16], the codebook stage's width, and D in (24, 32], CIFAR's:
+// the query fragments in registers (32 and 64 registers a thread), 128
+// query rows a block, and a ring deep enough that a tile has several
+// steps to arrive (eight stages of 6.3 KB at D = 16, six of 10.4 KB at
+// D = 32: three blocks an SM fit in shared memory). Other widths up to 128: fragments in shared
 // memory, 64 rows and three stages.
 template <bool COLLECT>
 cudaError_t walk(const Work& work, int qp, int np, int ks, int n_valid,
                  int bins, int every, float* tb, cudaStream_t stream) {
   if (ks == 2) {
     return launch_walk<2, 4, 8, COLLECT>(work, qp, np, ks, n_valid, bins,
+                                         every, tb, stream);
+  }
+  if (ks == 4) {
+    return launch_walk<4, 4, 6, COLLECT>(work, qp, np, ks, n_valid, bins,
                                          every, tb, stream);
   }
   return launch_walk<0, 2, 3, COLLECT>(work, qp, np, ks, n_valid, bins,

@@ -16,6 +16,7 @@ jitted reductions compute them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -27,7 +28,7 @@ from .._build import load_cuda_library
 from ..device import resolve_device
 from .knn_select import dot_last
 
-# widest latent the kernel keeps in registers (csrc/assign.cu)
+# widest latent the kernel takes (csrc/assign.cu)
 MAX_DIM = 128
 # elements of the (rows, K) distance block the plain version materializes
 # per step
@@ -35,9 +36,8 @@ _REF_BLOCK_ELEMS = 1 << 24
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "assign_launch": ([_VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP, _VP],
-                      _CI),
-    "assign_padded_dim": ([_CI], _CI),
+    "assign_launch": ([_VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP], _CI),
+    "assign_work_bytes": ([_CI, _CI, _CI], _CI),
     "assign_error_string": ([_CI], ctypes.c_char_p),
 }
 
@@ -47,14 +47,21 @@ def build() -> str:
     return load_cuda_library("assign.cu", _SIGNATURES)[1]
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     return load_cuda_library("assign.cu", _SIGNATURES)[0]
 
 
 @functools.lru_cache(maxsize=None)
-def _padded_dim(d: int) -> int:
-    """Width the kernel pads each code to (``assign_padded_dim``)."""
-    return _library().assign_padded_dim(d)
+def _work_words(n: int, d: int, k: int) -> int:
+    """int64 words of scratch the kernel takes at this shape
+    (``assign_work_bytes``: the padded codebook, or the code slices'
+    partial results), rounded up to 16 bytes."""
+    nbytes = _library().assign_work_bytes(n, d, k)
+    if nbytes < 0:
+        raise RuntimeError(f"assign_work_bytes failed (n={n} d={d} k={k})")
+    return 2 * -(-nbytes // 16)
+
 
 
 def _check(z: torch.Tensor, codebook: torch.Tensor) -> None:
@@ -90,24 +97,28 @@ def nearest_codes(z, codebook, device=None
     n, d = z.shape
     if d > MAX_DIM:
         raise ValueError(f"nearest_codes: D={d} > {MAX_DIM}, the widest "
-                         f"latent kernel K3 holds in registers")
-    lib = _library()
+                         f"latent kernel K3 takes")
     z = z.contiguous()
     codebook = codebook.contiguous()
     k = codebook.shape[0]
-    idx = torch.empty(n, dtype=torch.int64, device=z.device)
     if n == 0:
-        return idx, torch.empty(0, dtype=torch.float32, device=z.device)
-    # one f32 buffer: the codebook zero-padded to the kernel's width, |c|^2
-    # (scratch), then the distances
-    padded = k * _padded_dim(d)
-    buf = torch.empty(padded + k + n, dtype=torch.float32, device=z.device)
-    dist = buf[padded + k:]
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
+        return (torch.empty(0, dtype=torch.int64, device=z.device),
+                torch.empty(0, dtype=torch.float32, device=z.device))
+    # one allocation: the kernel's scratch (16-byte aligned), the indices,
+    # then the distances (f32, two to a word)
+    work = _work_words(n, d, k)
+    buf = torch.empty(work + n + (n + 1) // 2, dtype=torch.int64,
+                      device=z.device)
+    idx = buf[work:work + n]
+    dist = buf[work + n:].view(torch.float32)[:n]
+    lib = _library()
+    dev = z.device
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
         rc = lib.assign_launch(z.data_ptr(), codebook.data_ptr(), n, d, k,
-                               buf.data_ptr(), buf[padded:].data_ptr(),
-                               idx.data_ptr(), dist.data_ptr(), stream)
+                               buf.data_ptr(), idx.data_ptr(),
+                               dist.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"assign kernel launch failed: "

@@ -8,7 +8,11 @@ rule), with that tree's own ``chip_smoke.py`` helpers and
 ``vqvae_tpu_torch`` (``ab_knn_select.run_trees``): it builds the tree's
 K3 and K4, then times
 - K3 at the quality stage's 160,000 x 16 rows against 512 codes
-  (``chip_smoke.py`` phase 3's latents, seed 1);
+  (``chip_smoke.py`` phase 3's latents, seed 1), at the vanilla presets'
+  width D = 128 (1,000, 10,000 and 60,000 rows: phase 3's seed-2
+  latents) and at CIFAR's D = 32 (16,000 and 160,000 rows, clustered
+  latents of seed 3), with the wrapper's host time per call (enqueue
+  only) at 1,000 x 128;
 - K4 at the gather-min tool's shapes (2^20 indices into 196,608 x K,
   K in 256, 512, 1024; ``chip_smoke.py``'s generator, seed 0) and at
   4,096 indices into 196,608 x 1024, without the wrapper's index check;
@@ -40,12 +44,17 @@ from vqvae_tpu_torch.ops import assign
 from vqvae_tpu_torch.ops import gather_min as gm
 
 def device_ms(fn, calls=10):
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.device_time_total for ev in prof.key_averages()
-               if ev.device_time_total > 0) / 1e3 / calls
+    # a session that records no device time is taken again, twice at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ev.device_time_total for ev in prof.key_averages()
+                    if ev.device_time_total > 0)
+        if total > 0:
+            return total / 1e3 / calls
+    raise SystemExit("torch.profiler recorded no device time")
 
 resolve_device("cuda")
 t0 = time.perf_counter()
@@ -58,6 +67,25 @@ cb = torch.from_numpy(z[cs.K3_ROWS:]).cuda()
 res["K3_ms"] = cs.cuda_ms(lambda: assign.nearest_codes(zd, cb), 20)
 res["K3_device_ms"] = device_ms(lambda: assign.nearest_codes(zd, cb))
 del zd, cb
+for width, rows_list, seed in ((128, (1_000, 10_000, 60_000), 2),
+                               (32, (16_000, 160_000), 3)):
+    z = cs.make_latents(rows_list[-1] + cs.K3_CODES, width, seed=seed)
+    cb = torch.from_numpy(z[rows_list[-1]:]).cuda()
+    for rows in rows_list:
+        zd = torch.from_numpy(z[:rows]).cuda()
+        name = f"K3_d{width}_r{rows}"
+        res[name + "_ms"] = cs.cuda_ms(
+            lambda: assign.nearest_codes(zd, cb), 20)
+        res[name + "_device_ms"] = device_ms(
+            lambda: assign.nearest_codes(zd, cb))
+        if width == 128 and rows == rows_list[0]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()  # enqueue only: the card runs behind
+            for _ in range(200):
+                assign.nearest_codes(zd, cb)
+            res[name + "_host_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+            torch.cuda.synchronize()
+    del zd, cb
 gen = torch.Generator(device="cuda").manual_seed(0)
 for k, rows in [(k, cs.K4_ROWS) for k in cs.K4_WIDTHS] + [(1024, 4096)]:
     d = torch.rand((cs.K4_N, k), generator=gen, device="cuda")

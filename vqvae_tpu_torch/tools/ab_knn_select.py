@@ -8,7 +8,11 @@ rule), with that tree's own ``chip_smoke.py`` helpers and
 ``chip_smoke.py`` latents (983,040 x 16, seed 0, 16,384 query rows,
 k_sel 29) K1 packed at bins 1024 and K2 unpacked at bins 768 (CUDA events,
 mean of 5 calls after a warm-up), K1 against the first 262,144 rows (a
-database that fits in the 50 MB L2), and one codebook main run at full
+database that fits in the 50 MB L2), K1 and K2 at CIFAR's width on the
+codebook stage's one launch there (65,536 x 65,536 clustered latents at
+D = 32, seed 0; K1 at bins 1024 with one call's device time by kernel,
+``torch.profiler``; K2 unpacked at bins 1024, the same walk: 65,536 rows
+admit no other bins), and one codebook main run at full
 width (``chip_smoke.py`` phase 4) for its ``timings_s``.
 
 Run from the repository root on one GPU:
@@ -48,6 +52,17 @@ res["K1_l2_ms"] = cs.cuda_ms(lambda: ks.fused_select(
     zq, zl2, 262_144, metric="euclidean", bins=1024, k_sel=cs.K_SEL,
     packed=True), 5)
 del zd, zq, zl2
+torch.cuda.empty_cache()
+# CIFAR's width: the codebook stage's one launch, all against all
+z32 = torch.from_numpy(cs.make_latents(65_536, 32, seed=0)).cuda()
+for name, bins, packed in (("K1_d32", 1024, True), ("K2_d32", 1024, False)):
+    call = lambda: ks.fused_select(z32, z32, 65_536, metric="euclidean",
+                                   bins=bins, k_sel=cs.K_SEL, packed=packed)
+    res[name + "_ms"] = cs.cuda_ms(call, 3)
+    if packed:
+        res[name + "_by_kernel"] = {key[:48]: t for key, t
+                                    in cs.kernel_times(call)}
+del z32
 torch.cuda.empty_cache()
 work = tree / "build" / "ab_knn_select"
 shutil.rmtree(work, ignore_errors=True)

@@ -1,21 +1,26 @@
 """Card-vs-CPU gaps of the VAE's epoch check over seeds, between source
 trees.
 
-``chip_smoke.py`` phases 13 and 17c hold one epoch of the VAE's
+``chip_smoke.py`` phases 13 and 17c run one epoch of the VAE's
 device-resident path (600 images padded to 3 batches of 256, three Adam
-steps) on the card against the CPU at seed 42: the mean (loss, recon, kl)
-gap relative to the largest, within 1e-5 (FashionMNIST) and 5e-6
-(CIFAR-10), with a TF32 control that must fail. This tool runs that
-check's own code (``chip_smoke.vae_epoch_runs`` and ``epoch_loss_gap``
-of this checkout) at seeds 0-7 and 42 for both presets
-(``configs/fashionmnist/spatial/geodesic`` and
+steps) at seed 42 and hold each step on the card from the CPU's state
+before it: the step's (loss, recon, kl) gap relative to the largest, and
+the largest gradient difference as a share of its tensor's norm (phase
+7's measure), within ``HELD_LIMITS``, with a TF32 control that must lie
+past them at every step. This tool runs that check's own code
+(``chip_smoke.vae_cpu_epoch``, ``vae_held_gaps`` and
+``held_step_verdict`` of this checkout) at seeds 0-7 and 42 for both
+presets (``configs/fashionmnist/spatial/geodesic`` and
 ``configs/cifar10/spatial/geodesic`` at full width) and prints per seed
-[f32 gap, TF32 control's gap, the first step's gradient elements whose
-sign differs card vs CPU with each device's own noisy latents, the same
-with the CPU's latents given to the card] (the conv biases that feed a
-BatchNorm left out: their true gradient is 0), so a limit can be read
-against the spread of the gap, and the flips that Adam's first step
-turns into whole steps traced to the latents.
+the held steps' gaps [loss, grad] in f32 and in the TF32 control, the
+check's verdict, the free-running epoch's mean (loss, recon, kl) gap in
+f32 and TF32 (``epoch_loss_gap``: logged by the check, not gated), and
+the first step's gradient elements whose sign differs card vs CPU with
+each device's own noisy latents and with the CPU's latents given to the
+card (the conv biases that feed a BatchNorm left out: their true
+gradient is 0); then per preset and measure the largest f32 gap, the
+smallest TF32 gap and the medians over the seeds, so each limit can be
+read against both ranges.
 
 Each tree given (a checkout of the repository, e.g. an unpacked
 ``git archive`` of the parent commit beside the working tree) runs in its
@@ -80,23 +85,48 @@ def flips(a, b, skip):
                for k in a if k not in skip)
 
 
-out = {"tree": str(tree)}
+def spread(values):
+    return {"max": float(np.max(values)), "min": float(np.min(values)),
+            "median": float(np.median(values))}
+
+
+out = {"tree": str(tree), "limits": cs.HELD_LIMITS}
 for preset, dataset in ((cs.PRESET, "fashionmnist"), (cs.CIFAR, "cifar10")):
     rows = {}
     for seed in SEEDS:
         runs = cs.vae_epoch_runs(seed, preset, dataset)
         images = runs.split.images
-        cpu = runs.epoch("cpu", images)
+        cpu, states, results = cs.vae_cpu_epoch(runs)
+        held = cs.vae_held_gaps(runs, states, results)
+        control = cs.vae_held_gaps(runs, states, results, tf32=True)
+        passed, why = cs.held_step_verdict(held, control,
+                                           cs.HELD_LIMITS[dataset])
         card = runs.epoch("cuda", images)
         tf32 = runs.epoch("cuda", images, tf32=True)
         skip = cs._pre_norm_biases(runs.model)
         g_cpu, z_cpu = step_grads(runs, seed, "cpu")
         g_own, _ = step_grads(runs, seed, "cuda")
         g_same, _ = step_grads(runs, seed, "cuda", z_cpu)
-        rows[seed] = [cs.epoch_loss_gap(card, cpu),
-                      cs.epoch_loss_gap(tf32, cpu),
-                      flips(g_own, g_cpu, skip), flips(g_same, g_cpu, skip)]
-    out[dataset] = rows
+        rows[seed] = {
+            "held": [[g["loss"], g["grad"]] for g in held],
+            "control": [[g["loss"], g["grad"]] for g in control],
+            "passed": passed, "why": why,
+            "epoch": [cs.epoch_loss_gap(card, cpu),
+                      cs.epoch_loss_gap(tf32, cpu)],
+            "flips": [flips(g_own, g_cpu, skip), flips(g_same, g_cpu, skip)]}
+    summary = {}
+    for m, name in enumerate(("loss", "grad")):
+        f32 = [st[m] for r in rows.values() for st in r["held"]]
+        ctl = [st[m] for r in rows.values() for st in r["control"]]
+        summary[name] = {
+            "f32": spread(f32), "tf32": spread(ctl),
+            "seed_medians_f32": spread([np.median([st[m] for st in r["held"]])
+                                        for r in rows.values()]),
+            "seed_medians_tf32": spread([np.median([st[m] for st in
+                                                    r["control"]])
+                                         for r in rows.values()])}
+    out[dataset] = {"seeds": rows, "summary": summary,
+                    "all_passed": all(r["passed"] for r in rows.values())}
 print("AB " + json.dumps(out), flush=True)
 """
 
