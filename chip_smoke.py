@@ -342,7 +342,9 @@ def kernel_times(fn, calls: int = 1):
     idle time before the first call and after the last: late in a long
     run, a session whose calls fill only a millisecond or two recorded no
     device time at all. A session that records none is taken again, five
-    times at most, and logged."""
+    times at most, and logged. The program's own ranges (``vqvae.``, the
+    spans of ``utils/profiling.py``) are left out: a range's device time
+    is its kernels', counted under their own names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -361,7 +363,8 @@ def kernel_times(fn, calls: int = 1):
             ((ev.key.replace("void ", "").replace("(anonymous namespace)::",
                                                   "").split("(")[0],
               ev.device_time_total / 1e3 / calls)
-             for ev in prof.key_averages() if ev.device_time_total > 0),
+             for ev in prof.key_averages()
+             if ev.device_time_total > 0 and not ev.key.startswith("vqvae.")),
             key=lambda kv: -kv[1])
         if parts:
             return parts

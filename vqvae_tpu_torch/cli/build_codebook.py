@@ -40,6 +40,7 @@ from ..ops.riemannian import (edge_lengths_riemannian_auto,
 from ..parallel.mesh import barrier, get_mesh, init_distributed, is_primary
 from ..utils.checkpoint import load_vae_from_checkpoint
 from ..utils.latents import flatten_spatial, load_latents
+from ..utils.profiling import span
 
 
 def build_codebook_main(cfg: Config, device=None) -> Path:
@@ -48,10 +49,16 @@ def build_codebook_main(cfg: Config, device=None) -> Path:
     init_distributed(device=device)
     dev = resolve_device(device)
     mesh = get_mesh()  # every geo kernel shards over the process group
+    with span("vqvae.codebook.build"):
+        return _build(cfg, dev, mesh)
+
+
+def _build(cfg: Config, dev: torch.device, mesh) -> Path:
     out_dir = Path(cfg["out_dir"])
     if is_primary():
         out_dir.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
+    timings_s = {}
 
     vae_cfg = dict(cfg["vae"])
     vae_cfg.setdefault("topology", "spatial")
@@ -61,11 +68,11 @@ def build_codebook_main(cfg: Config, device=None) -> Path:
                                                 (256, 128, 64)))
     vae_cfg.setdefault("recon_loss", "mse")
     vae_cfg.setdefault("mse_use_sigmoid", True)
-    model = load_vae_from_checkpoint(cfg["vae_ckpt_path"], vae_cfg,
-                                     device=dev)
-    decode_fn = make_decoder_image_fn(model, model.topology)
-
-    z = load_latents(cfg["latents_path"])["z"]
+    with span("vqvae.codebook.inputs"):
+        model = load_vae_from_checkpoint(cfg["vae_ckpt_path"], vae_cfg,
+                                         device=dev)
+        decode_fn = make_decoder_image_fn(model, model.topology)
+        z = load_latents(cfg["latents_path"])["z"]
     if z.ndim != 4:
         raise ValueError(
             f"spatial codebook build expects (N,H,W,C) latents, got {z.shape}")
@@ -82,42 +89,45 @@ def build_codebook_main(cfg: Config, device=None) -> Path:
     print(f"[codebook] kNN selection: "
           f"{resolve_knn_kernel(method is not None)} "
           f"(graph.method={'exact' if method is None else method})")
-    t0 = time.perf_counter()
-    W_eu, _ = build_knn_graph_auto(z_flat, k=k, metric="euclidean",
-                                   mode="connectivity", sym=sym,
-                                   force_method=method, device=dev,
-                                   mesh=mesh)
-    t_knn = time.perf_counter() - t0
+    with span("vqvae.codebook.knn", timings_s):
+        W_eu, _ = build_knn_graph_auto(z_flat, k=k, metric="euclidean",
+                                       mode="connectivity", sym=sym,
+                                       force_method=method, device=dev,
+                                       mesh=mesh)
     print(f"[codebook] kNN graph: {W_eu.shape[0]} nodes, {W_eu.nnz} edges "
-          f"({t_knn:.3f}s)")
+          f"({timings_s['knn']:.3f}s)")
 
     rows, cols = W_eu.nonzero()
     keep = rows < cols
     rows, cols = rows[keep], cols[keep]
     batch_size = int(cfg.get("system", Config({})).get(
         "batch_size", cfg.get("batch_size", 512)))
-    t0 = time.perf_counter()
-    lengths = edge_lengths_riemannian_auto(decode_fn, z_flat, rows, cols,
-                                           batch_size=batch_size, device=dev,
-                                           mesh=mesh)
-    t_riem = time.perf_counter() - t0
+    with span("vqvae.codebook.riemannian", timings_s):
+        lengths = edge_lengths_riemannian_auto(
+            decode_fn, z_flat, rows, cols, batch_size=batch_size, device=dev,
+            mesh=mesh)
     print(f"[codebook] Riemannian re-weighting: {len(lengths)} edges "
-          f"({t_riem:.3f}s)")
+          f"({timings_s['riemannian']:.3f}s)")
 
-    t0 = time.perf_counter()
-    W_geo = symmetric_csr_from_edges(rows, cols, np.asarray(lengths),
-                                     W_eu.shape[0])
-    mask_lcc = largest_connected_component(W_geo)
-    if mask_lcc.sum() < W_geo.shape[0]:
-        print(f"[codebook] Using LCC: {int(mask_lcc.sum())}/"
-              f"{W_geo.shape[0]} nodes")
-        W_lcc = W_geo[mask_lcc][:, mask_lcc]
-        z_lcc = z_flat[mask_lcc]
-    else:
-        W_lcc, z_lcc = W_geo, z_flat
-    if is_primary():
-        sparse.save_npz(out_dir / "knn_graph_geodesic.npz", W_lcc.tocsr())
-    t_lcc = time.perf_counter() - t0
+    # the CSR + LCC step in four chained spans: their seconds add up to
+    # ``lcc``, the step's own two clock readings
+    with span("vqvae.codebook.csr", timings_s) as csr:
+        W_geo = symmetric_csr_from_edges(rows, cols, np.asarray(lengths),
+                                         W_eu.shape[0])
+    with span("vqvae.codebook.components", timings_s, after=csr) as cc:
+        mask_lcc = largest_connected_component(W_geo)
+    with span("vqvae.codebook.subgraph", timings_s, after=cc) as sub:
+        if mask_lcc.sum() < W_geo.shape[0]:
+            print(f"[codebook] Using LCC: {int(mask_lcc.sum())}/"
+                  f"{W_geo.shape[0]} nodes")
+            W_lcc = W_geo[mask_lcc][:, mask_lcc].tocsr()
+            z_lcc = z_flat[mask_lcc]
+        else:
+            W_lcc, z_lcc = W_geo.tocsr(), z_flat
+    with span("vqvae.codebook.graph_write", timings_s, after=sub) as write:
+        if is_primary():
+            sparse.save_npz(out_dir / "knn_graph_geodesic.npz", W_lcc)
+    timings_s["lcc"] = (write.end - csr.start) / 1e9
 
     quant_cfg = cfg.get("quantize", Config({}))
     K = int(quant_cfg.get("K", cfg.get("K", 512)))
@@ -126,14 +136,13 @@ def build_codebook_main(cfg: Config, device=None) -> Path:
     kpp_rounds = int(quant_cfg.get("kpp_rounds", cfg.get("kpp_rounds", 4)))
     kpp_schedule = str(quant_cfg.get("kpp_schedule",
                                      cfg.get("kpp_schedule", "flat")))
-    t0 = time.perf_counter()
-    medoids, assign_lcc, qe = fit_kmedoids(
-        W_lcc, K=K, init=init, seed=seed, kpp_rounds=kpp_rounds,
-        kpp_schedule=kpp_schedule, device=dev, assume_symmetric=True,
-        mesh=mesh)
-    t_kmed = time.perf_counter() - t0
+    with span("vqvae.codebook.kmedoids", timings_s):
+        medoids, assign_lcc, qe = fit_kmedoids(
+            W_lcc, K=K, init=init, seed=seed, kpp_rounds=kpp_rounds,
+            kpp_schedule=kpp_schedule, device=dev, assume_symmetric=True,
+            mesh=mesh)
     print(f"[codebook] K-medoids: K={len(medoids)}, qe={qe:.6f} "
-          f"({t_kmed:.3f}s)")
+          f"({timings_s['kmedoids']:.3f}s)")
 
     assign_flat = np.full(z_flat.shape[0], -1, dtype=np.int32)
     assign_flat[mask_lcc] = assign_lcc
@@ -153,13 +162,12 @@ def build_codebook_main(cfg: Config, device=None) -> Path:
         "world_size": mesh.world_size,
         "quantization_error": qe,
         "lcc_nodes": int(mask_lcc.sum()),
-        "timings_s": {"knn": t_knn, "riemannian": t_riem, "lcc": t_lcc,
-                      "kmedoids": t_kmed,
-                      "total": time.perf_counter() - t_start},
+        "timings_s": {**timings_s, "total": time.perf_counter() - t_start},
     }
     if is_primary():
-        save_codebook_artifacts(out_dir, medoids, z_medoid, codes,
-                                config_record)
+        with span("vqvae.codebook.artifacts"):
+            save_codebook_artifacts(out_dir, medoids, z_medoid, codes,
+                                    config_record)
     barrier(mesh)  # rank 0's writes are done before any rank goes on
     print(f"[codebook] Quantization error: {qe:.6f}")
     print(f"[codebook] Saved artifacts to: {out_dir} "

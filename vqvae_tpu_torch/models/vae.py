@@ -85,18 +85,19 @@ class _TrainNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        xf, mean, inv, weight, n = ctx.saved_tensors
-        dy = dy.double()
-        xhat = torch.addcmul((-mean * inv)[:, None, None], xf.double(),
-                             inv[:, None, None])
-        local = _channel_sums(dy, dy * xhat)
-        sdy, sdyx = all_reduce_sum(local, ctx.mesh) / n
-        mul = weight.double() * inv
-        dx = torch.addcmul((-mul * sdy)[:, None, None], dy,
-                           mul[:, None, None])
-        dx = torch.addcmul(dx, xhat, (-mul * sdyx)[:, None, None])
-        db, dw = local.float()
-        return dx.float(), None, None, None, dw, db, None, None
+        with span("vqvae.vae.batchnorm_backward"):
+            xf, mean, inv, weight, n = ctx.saved_tensors
+            dy = dy.double()
+            xhat = torch.addcmul((-mean * inv)[:, None, None], xf.double(),
+                                 inv[:, None, None])
+            local = _channel_sums(dy, dy * xhat)
+            sdy, sdyx = all_reduce_sum(local, ctx.mesh) / n
+            mul = weight.double() * inv
+            dx = torch.addcmul((-mul * sdy)[:, None, None], dy,
+                               mul[:, None, None])
+            dx = torch.addcmul(dx, xhat, (-mul * sdyx)[:, None, None])
+            db, dw = local.float()
+            return dx.float(), None, None, None, dw, db, None, None
 
 
 def _channel_sums(*ts: torch.Tensor) -> torch.Tensor:
@@ -147,21 +148,22 @@ class BatchNorm(nn.BatchNorm2d):
         self.num_batches_tracked.add_(1)
 
     def _forward_train(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        with torch.no_grad():
-            c = xf.shape[1]
-            xd = xf.double()
-            stats = all_reduce_sum(torch.cat([
-                _channel_sums(xd, xd * xd).reshape(-1),
-                xd.new_full((1,), float(xf.numel() // max(c, 1)))]),
-                self.mesh)
-            n = torch.clamp_min(stats[2 * c], 1.0)
-            mean = stats[:c] / n
-            var = torch.clamp_min(stats[c:2 * c] / n - mean * mean, 0.0)
-            self._update_running(mean.float(), var.float())
-        return _TrainNorm.apply(xf, xd, mean, torch.rsqrt(var + self.eps),
-                                self.weight, self.bias, n,
-                                self.mesh).to(x.dtype)
+        with span("vqvae.vae.batchnorm"):
+            xf = x.float()
+            with torch.no_grad():
+                c = xf.shape[1]
+                xd = xf.double()
+                stats = all_reduce_sum(torch.cat([
+                    _channel_sums(xd, xd * xd).reshape(-1),
+                    xd.new_full((1,), float(xf.numel() // max(c, 1)))]),
+                    self.mesh)
+                n = torch.clamp_min(stats[2 * c], 1.0)
+                mean = stats[:c] / n
+                var = torch.clamp_min(stats[c:2 * c] / n - mean * mean, 0.0)
+                self._update_running(mean.float(), var.float())
+            return _TrainNorm.apply(xf, xd, mean,
+                                    torch.rsqrt(var + self.eps), self.weight,
+                                    self.bias, n, self.mesh).to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -473,3 +475,7 @@ def elbo_loss(
     else:
         total = recon + beta * kl
     return total, recon, kl
+
+
+# last: importing ``utils`` imports this module's ``VAE`` (utils/checkpoint)
+from ..utils.profiling import span  # noqa: E402

@@ -51,6 +51,7 @@ import torch
 from .. import native
 from ..device import resolve_device
 from ..parallel.mesh import all_reduce, shard_range
+from ..utils.profiling import count, span
 
 _INF = np.float32(np.inf)
 
@@ -255,44 +256,46 @@ def _ell_run(graph: BucketedGraph, d0: torch.Tensor, max_iters: int,
     cp = torch.ones(n_rows, dtype=torch.bool, device=d0.device)
     it, changed = 0, True
     while changed and it < max_iters:
-        reverse = it % 2 == 1
-        changed_dev = torch.zeros((), dtype=torch.bool, device=d0.device)
-        cc = torch.zeros(n_rows, dtype=torch.bool, device=d0.device)
-        for b, (nb_all, wb_all) in enumerate(zip(graph.nbrs, graph.wts)):
-            rows, deg = nb_all.shape
-            if rows == 0:
-                continue
-            chunk = _row_chunk(rows)
-            n_chunks = rows // chunk
-            blk = _deg_block(chunk, deg, k)
-            for i in range(n_chunks):
-                idx = n_chunks - 1 - i if reverse else i
-                r0 = int(offsets[b]) + idx * chunk
-                nb = nb_all[idx * chunk:(idx + 1) * chunk]
-                if active and not bool((cp[nb] | cc[nb]).any()):
-                    continue  # no in-neighbor moved: its candidates stand
-                wb = wb_all[idx * chunk:(idx + 1) * chunk]
-                cur = d_perm[r0:r0 + chunk]
-                new = cur
-                if blk > 1:
-                    nbb = nb.view(chunk, deg // blk, blk)
-                    wbb = wb.view(chunk, deg // blk, blk)
-                    for j in range(deg // blk):
-                        cand = d_perm[nbb[:, j]] + wbb[:, j, :, None]
-                        new = torch.minimum(new, cand.amin(dim=1))
-                else:
-                    for j in range(deg):
-                        new = torch.minimum(new,
-                                            d_perm[nb[:, j]] + wb[:, j, None])
-                if active:
-                    row_ch = (new < cur).any(dim=1)
-                    cc[r0:r0 + chunk] = row_ch
-                    changed_dev |= row_ch.any()
-                else:
-                    changed_dev |= (new < cur).any()
-                d_perm[r0:r0 + chunk] = new
-                counts[b] += 1
-        changed = bool(changed_dev)  # one host read a sweep
+        with span("vqvae.kmedoids.ell_sweep"):
+            reverse = it % 2 == 1
+            changed_dev = torch.zeros((), dtype=torch.bool, device=d0.device)
+            cc = torch.zeros(n_rows, dtype=torch.bool, device=d0.device)
+            for b, (nb_all, wb_all) in enumerate(zip(graph.nbrs, graph.wts)):
+                rows, deg = nb_all.shape
+                if rows == 0:
+                    continue
+                chunk = _row_chunk(rows)
+                n_chunks = rows // chunk
+                blk = _deg_block(chunk, deg, k)
+                for i in range(n_chunks):
+                    idx = n_chunks - 1 - i if reverse else i
+                    r0 = int(offsets[b]) + idx * chunk
+                    nb = nb_all[idx * chunk:(idx + 1) * chunk]
+                    if active and not bool((cp[nb] | cc[nb]).any()):
+                        continue  # no in-neighbor moved: its candidates stand
+                    wb = wb_all[idx * chunk:(idx + 1) * chunk]
+                    cur = d_perm[r0:r0 + chunk]
+                    new = cur
+                    if blk > 1:
+                        nbb = nb.view(chunk, deg // blk, blk)
+                        wbb = wb.view(chunk, deg // blk, blk)
+                        for j in range(deg // blk):
+                            cand = d_perm[nbb[:, j]] + wbb[:, j, :, None]
+                            new = torch.minimum(new, cand.amin(dim=1))
+                    else:
+                        for j in range(deg):
+                            new = torch.minimum(
+                                new, d_perm[nb[:, j]] + wb[:, j, None])
+                    if active:
+                        row_ch = (new < cur).any(dim=1)
+                        cc[r0:r0 + chunk] = row_ch
+                        changed_dev |= row_ch.any()
+                    else:
+                        changed_dev |= (new < cur).any()
+                    d_perm[r0:r0 + chunk] = new
+                    counts[b] += 1
+            changed = bool(changed_dev)  # one host read a sweep
+        count("vqvae.kmedoids.ell_sweeps")
         cp = cc
         it += 1
     return d_perm[graph.inv_perm], it, counts

@@ -41,6 +41,7 @@ from scipy import sparse
 
 from ..device import resolve_device
 from ..parallel.mesh import agree_any, all_reduce_min_argmin
+from ..utils.profiling import span
 from .backend import HOST_WORK_THRESHOLD, _native_ok, multi_source_distances
 from .ell import BucketedGraph, source_columns
 from .graph import bfs_node_order
@@ -273,50 +274,51 @@ def kpp_parallel_initialization(W: GraphLike, K: int, seed: int = 42,
     round_ids = np.zeros(per_round, dtype=np.int64)
     r = 0
     while True:
-        t_pass = time.perf_counter()
-        srcs = np.asarray(new_centers, np.int64)
-        if use_device:
-            d0 = _warm_d0(d_min_dev, torch.from_numpy(srcs).to(dev), mesh)
-            d_new = graph.distances(srcs, d0=d0, device_out=True)
-            d_min_dev, assign_dev = _round_update(
-                d_new, d_min_dev, assign_dev,
-                torch.from_numpy(round_ids).to(dev), mesh)
-            d_min = d_min_dev.cpu().numpy()  # sync: the pass ends here
-        else:
-            d_new = graph.distances(srcs)
-            best = d_new.min(axis=1)
-            improved = best < d_min
-            if return_assignment:
-                assign = np.where(improved, round_ids[d_new.argmin(axis=1)],
-                                  assign)
-            d_min = np.minimum(d_min, best)
+        with span("vqvae.kmedoids.pass", stats["pass_seconds"]):
+            srcs = np.asarray(new_centers, np.int64)
+            if use_device:
+                d0 = _warm_d0(d_min_dev, torch.from_numpy(srcs).to(dev),
+                              mesh)
+                d_new = graph.distances(srcs, d0=d0, device_out=True)
+                d_min_dev, assign_dev = _round_update(
+                    d_new, d_min_dev, assign_dev,
+                    torch.from_numpy(round_ids).to(dev), mesh)
+                d_min = d_min_dev.cpu().numpy()  # sync: the pass ends here
+            else:
+                d_new = graph.distances(srcs)
+                best = d_new.min(axis=1)
+                improved = best < d_min
+                if return_assignment:
+                    assign = np.where(improved,
+                                      round_ids[d_new.argmin(axis=1)], assign)
+                d_min = np.minimum(d_min, best)
         stats["passes"] += 1
-        stats["pass_seconds"].append(time.perf_counter() - t_pass)
         if r >= len(sizes) or len(centers) >= K:
             break
         m = min(sizes[r], K - len(centers))
         r += 1
-        t_sample = time.perf_counter()
-        probs = _safe_sq_probs(d_min, centers)
-        if probs.sum() <= 0:
-            pool = np.setdiff1d(np.arange(n), np.asarray(centers))
-            picks = rng.choice(pool, size=min(m, pool.size), replace=False)
-        else:
-            # Gumbel top-m: m distinct samples ~ probs without replacement
-            logp = np.full(n, -np.inf)
-            nz = probs > 0
-            logp[nz] = np.log(probs[nz])
-            gumbel = rng.gumbel(size=n)
-            picks = np.argsort(-(logp + gumbel))[:m]
-            picks = picks[np.isfinite(logp[picks])]
-        real = [int(p) for p in picks]
-        n_pad = per_round - len(real)
-        new_centers = real + [centers[0]] * n_pad
-        round_ids = np.concatenate([
-            len(centers) + np.arange(len(real), dtype=np.int64),
-            np.zeros(n_pad, dtype=np.int64)])
-        centers.extend(real)
-        stats["sample_seconds"] += time.perf_counter() - t_sample
+        with span("vqvae.kmedoids.sample", stats, "sample_seconds"):
+            probs = _safe_sq_probs(d_min, centers)
+            if probs.sum() <= 0:
+                pool = np.setdiff1d(np.arange(n), np.asarray(centers))
+                picks = rng.choice(pool, size=min(m, pool.size),
+                                   replace=False)
+            else:
+                # Gumbel top-m: m distinct samples ~ probs without
+                # replacement
+                logp = np.full(n, -np.inf)
+                nz = probs > 0
+                logp[nz] = np.log(probs[nz])
+                gumbel = rng.gumbel(size=n)
+                picks = np.argsort(-(logp + gumbel))[:m]
+                picks = picks[np.isfinite(logp[picks])]
+            real = [int(p) for p in picks]
+            n_pad = per_round - len(real)
+            new_centers = real + [centers[0]] * n_pad
+            round_ids = np.concatenate([
+                len(centers) + np.arange(len(real), dtype=np.int64),
+                np.zeros(n_pad, dtype=np.int64)])
+            centers.extend(real)
 
     KMED_STATS.append(stats)
     centers = centers[:K]

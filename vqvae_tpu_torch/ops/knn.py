@@ -38,6 +38,7 @@ import torch
 from .. import native
 from ..device import resolve_device
 from ..parallel.mesh import all_gather_rows
+from ..utils.profiling import span
 from .knn_select import CAND_LANES, dot_last, fused_select
 
 # last effective kNN configuration, recorded by knn_search for provenance
@@ -86,12 +87,13 @@ def _exact_rerank(q, qv, all_d, all_i, z, k: int, metric: str):
     Non-finite ``all_d`` entries mark unfilled / padded candidates and are
     excluded; returned distances are exact for the returned indices, ties
     to the earlier candidate column (as ``lax.top_k``)."""
-    exact = _exact_distances(q, all_i, z, metric)
-    exact = torch.where(torch.isfinite(all_d), exact, float("inf"))
-    vals, sel = torch.sort(exact, dim=1, stable=True)
-    best_d = torch.where(qv[:, None], vals[:, :k], float("inf"))
-    best_i = torch.gather(all_i, 1, sel[:, :k])
-    return best_d, best_i
+    with span("vqvae.knn.rerank"):
+        exact = _exact_distances(q, all_i, z, metric)
+        exact = torch.where(torch.isfinite(all_d), exact, float("inf"))
+        vals, sel = torch.sort(exact, dim=1, stable=True)
+        best_d = torch.where(qv[:, None], vals[:, :k], float("inf"))
+        best_i = torch.gather(all_i, 1, sel[:, :k])
+        return best_d, best_i
 
 
 def _knn_block_exact(zq, z, n_valid: int, q_valid, *, k: int, metric: str,

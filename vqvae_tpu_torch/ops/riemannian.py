@@ -53,6 +53,7 @@ import torch
 from ..device import resolve_device
 from ..models.vae import decode_to_image
 from ..parallel.mesh import all_gather_rows, pad_to_multiple, shard_range
+from ..utils.profiling import span
 
 _AUTO_DEFAULT_BATCH = 1024
 
@@ -255,8 +256,11 @@ def edge_lengths_riemannian_indexed(decode_fn: Callable, z, rows: np.ndarray,
     out = torch.empty(ee - es, dtype=torch.float32, device=dev)
     with torch.no_grad():
         for s in range(0, ee - es, batch_size):
-            r, c = r_t[s:s + batch_size], c_t[s:s + batch_size]
-            out[s:s + batch_size] = _chunk_norms(decode_fn, z_t[r], z_t[c])
+            with span("vqvae.riemannian.gather"):
+                r, c = r_t[s:s + batch_size], c_t[s:s + batch_size]
+                za, zb = z_t[r], z_t[c]
+            with span("vqvae.riemannian.jvp"):
+                out[s:s + batch_size] = _chunk_norms(decode_fn, za, zb)
     out = all_gather_rows(out, e_pad, mesh)[:e]
     return out.cpu().numpy()
 

@@ -67,6 +67,7 @@ from ..parallel.mesh import (all_gather_rows, all_reduce_sum, get_mesh,
 from ..utils.checkpoint import cpu_state_dict, save_checkpoint
 from ..utils.images import save_image_grid
 from ..utils.latents import save_latents
+from ..utils.profiling import span
 from .state import make_optimizer
 
 
@@ -180,22 +181,27 @@ class VAEEngine:
         parallelism ``images`` are this rank's rows of the global batch
         and ``noise_rows`` their (start, global rows)."""
         self.model.train()
-        x_logits, mu, logvar, _ = self.model(
-            images, generator, self._rows_of(images, noise_rows, generator))
-        total, recon, kl = self.model.loss(
-            images, x_logits, mu, logvar, beta=beta, mask=mask,
-            step=self.step, mesh=self.mesh)
-        self.opt.zero_grad()
-        total.backward()
-        sum_gradients(self.model.parameters(), self.mesh)
+        with span("vqvae.vae.forward"):
+            x_logits, mu, logvar, _ = self.model(
+                images, generator,
+                self._rows_of(images, noise_rows, generator))
+        with span("vqvae.vae.loss"):
+            total, recon, kl = self.model.loss(
+                images, x_logits, mu, logvar, beta=beta, mask=mask,
+                step=self.step, mesh=self.mesh)
+        with span("vqvae.vae.backward"):
+            self.opt.zero_grad()
+            total.backward()
+            sum_gradients(self.model.parameters(), self.mesh)
         if nan_guard:
-            finite = torch.isfinite(total.detach())
-            with torch.no_grad():
+            with span("vqvae.vae.guard"), torch.no_grad():
+                finite = torch.isfinite(total.detach())
                 for p in self.model.parameters():
                     if p.grad is not None:
                         p.grad = torch.where(finite, p.grad,
                                              torch.zeros_like(p.grad))
-        self.opt.step()
+        with span("vqvae.vae.optimizer"):
+            self.opt.step()
         self.step += 1
         return {"loss": total.detach(), "recon": recon.detach(),
                 "kl": kl.detach()}
@@ -252,15 +258,18 @@ class VAEEngine:
         """Steps over ``perm`` (indices into the padded rows), guarded;
         returns the mean per-step (loss, recon, kl) on the device. Under
         data parallelism each step takes this rank's rows of the batch."""
-        sums = torch.zeros(3, device=self.device)
-        mine = self.local_rows(batch_size)
-        for i in range(n_steps):
-            ib = perm[i * batch_size:(i + 1) * batch_size][mine]
-            m = self.train_step(data[ib], mask_all[ib], beta, generator,
-                                nan_guard=True,
-                                noise_rows=self._noise_rows(batch_size))
-            sums += torch.stack([m["loss"], m["recon"], m["kl"]])
-        return sums / n_steps
+        with span("vqvae.vae.train_epoch"):
+            sums = torch.zeros(3, device=self.device)
+            mine = self.local_rows(batch_size)
+            for i in range(n_steps):
+                with span("vqvae.vae.train_step"):
+                    ib = perm[i * batch_size:(i + 1) * batch_size][mine]
+                    m = self.train_step(
+                        data[ib], mask_all[ib], beta, generator,
+                        nan_guard=True,
+                        noise_rows=self._noise_rows(batch_size))
+                    sums += torch.stack([m["loss"], m["recon"], m["kl"]])
+            return sums / n_steps
 
     @torch.no_grad()
     def eval_epoch(self, data: torch.Tensor, mask_all: torch.Tensor,
@@ -271,12 +280,14 @@ class VAEEngine:
         sums = torch.zeros(6, device=self.device)
         mine = self.local_rows(batch_size)
         for i in range(n_steps):
-            sl = slice(i * batch_size + mine.start, i * batch_size + mine.stop)
-            m = self.eval_step(data[sl], mask_all[sl], beta, generator,
-                               self._noise_rows(batch_size))
-            sums += torch.stack([m["loss"], m["recon"], m["kl"],
-                                 m["psnr"] * m["n"], m["ssim"] * m["n"],
-                                 m["n"]])
+            with span("vqvae.vae.eval_step"):
+                sl = slice(i * batch_size + mine.start,
+                           i * batch_size + mine.stop)
+                m = self.eval_step(data[sl], mask_all[sl], beta, generator,
+                                   self._noise_rows(batch_size))
+                sums += torch.stack([m["loss"], m["recon"], m["kl"],
+                                     m["psnr"] * m["n"], m["ssim"] * m["n"],
+                                     m["n"]])
         return sums
 
     # -- loops ---------------------------------------------------------------
