@@ -12,18 +12,22 @@ benchmark's readers of them, on the CPU profiler.
 - every row lies inside the profiler's own row of its name, within 50 us
   (one clock);
 - the CSR + LCC step's four parts add up to its ``lcc`` seconds;
+- the graph's write counts the pieces its pool compressed, one a member
+  of the build's small graph, and each piece of a graph cut small;
 - ``KMED_STATS`` takes its pass and sample seconds from the spans;
 - each new reader of ``portbench/metrics/`` returns its number from a
   synthetic table and ``info``, and None without its source; the tools
   that measure the spans' cost (``tools/span_cost.py``,
   ``portbench/tools/traced_cost.py``) run at a small size.
 """
+import zipfile
 from collections import Counter, defaultdict
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from scipy import sparse
 from torch.profiler import ProfilerActivity, profile
 
 from portbench import harness
@@ -35,7 +39,7 @@ from vqvae_tpu_torch.ops import kmedoids
 from vqvae_tpu_torch.ops.ell import (BucketedGraph,
                                      multi_source_shortest_paths_ell)
 from vqvae_tpu_torch.train.vae_engine import VAEEngine, seeded_generator
-from vqvae_tpu_torch.utils import profiling
+from vqvae_tpu_torch.utils import npz, profiling
 from vqvae_tpu_torch.utils.checkpoint import save_checkpoint
 from vqvae_tpu_torch.utils.latents import save_latents
 
@@ -243,6 +247,28 @@ def test_traced_lcc_parts_lie_within_the_lcc_step(traced_build):
     parts = sum(t[k] for k in LCC_PARTS)
     assert 0 < parts <= t["lcc"] and parts == pytest.approx(t["lcc"],
                                                             rel=0.05)
+
+
+def test_the_graph_write_counts_its_pieces(traced_build, build_cfg,
+                                           tmp_path, monkeypatch):
+    rows, _, timings, _ = traced_build
+    graph = Path(build_cfg["out_dir"]) / "knn_graph_geodesic.npz"
+    with zipfile.ZipFile(graph) as f:
+        members = len(f.infolist())  # each fits one piece
+    assert [(r.count, r.parent) for r in rows
+            if r.name == "vqvae.codebook.graph_write_chunks"] == \
+        [(members, "vqvae.codebook.graph_write")]
+    assert set(timings) == {"knn", "riemannian", *LCC_PARTS, "lcc",
+                            "kmedoids", "total"}
+    monkeypatch.setattr(npz, "CHUNK", 1 << 14)
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pieces = npz.save_csr_npz(tmp_path / "graph.npz",
+                                  sparse.load_npz(graph))
+    assert profiling.spans() == []  # the writer counts nothing itself
+    with zipfile.ZipFile(tmp_path / "graph.npz") as f:
+        assert pieces == sum(-(-i.file_size // (1 << 14))
+                             for i in f.infolist()) > len(f.infolist())
 
 
 def _inside(rows, prof_rows):

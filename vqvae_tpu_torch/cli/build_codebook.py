@@ -6,7 +6,7 @@ connectivity graph (union) -> Riemannian re-weighting of every unique edge
 through decoder JVPs -> symmetric CSR -> LCC -> graph K-medoids -> codes
 (N, H, W) with -1 off the LCC. Writes the JAX package's four artifacts:
 
-    knn_graph_geodesic.npz   (scipy CSR of the LCC graph)
+    knn_graph_geodesic.npz   (scipy CSR of the LCC graph; `utils/npz.py`)
     codebook.npz             {medoid_indices, z_medoid, config_json}
     codebook.pt              (mirror of the reference artifact)
     codes.npy
@@ -27,7 +27,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from scipy import sparse
 
 from ..config import Config, load_config
 from ..device import resolve_device
@@ -40,7 +39,8 @@ from ..ops.riemannian import (edge_lengths_riemannian_auto,
 from ..parallel.mesh import barrier, get_mesh, init_distributed, is_primary
 from ..utils.checkpoint import load_vae_from_checkpoint
 from ..utils.latents import flatten_spatial, load_latents
-from ..utils.profiling import span
+from ..utils.npz import save_csr_npz
+from ..utils.profiling import count, span
 
 
 def build_codebook_main(cfg: Config, device=None) -> Path:
@@ -126,7 +126,8 @@ def _build(cfg: Config, dev: torch.device, mesh) -> Path:
             W_lcc, z_lcc = W_geo.tocsr(), z_flat
     with span("vqvae.codebook.graph_write", timings_s, after=sub) as write:
         if is_primary():
-            sparse.save_npz(out_dir / "knn_graph_geodesic.npz", W_lcc)
+            count("vqvae.codebook.graph_write_chunks",
+                  save_csr_npz(out_dir / "knn_graph_geodesic.npz", W_lcc))
     timings_s["lcc"] = (write.end - csr.start) / 1e9
 
     quant_cfg = cfg.get("quantize", Config({}))

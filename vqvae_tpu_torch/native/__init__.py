@@ -56,9 +56,16 @@ def _load() -> ctypes.CDLL:
     return load_library(_SRC, _CMD, _SIGNATURES)[0]
 
 
+def _host_threads() -> int:
+    """The cores this process may run on (its affinity), not the host's."""
+    try:
+        return max(1, len(os.sched_getaffinity(0)))
+    except AttributeError:  # non-Linux
+        return os.cpu_count() or 1
+
+
 def _threads() -> int:
-    return int(os.environ.get("VQVAE_TPU_NATIVE_THREADS",
-                              os.cpu_count() or 1))
+    return int(os.environ.get("VQVAE_TPU_NATIVE_THREADS", _host_threads()))
 
 
 def _csr_parts(W) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:

@@ -13,24 +13,16 @@ distances:
 """
 from __future__ import annotations
 
-import os
-
 import numpy as np
 from scipy import sparse
 
 from .. import native
 from ..device import resolve_device
+from ..native import _host_threads
 from ..parallel.mesh import all_gather_rows
 from .ell import (BucketedGraph, multi_source_shortest_paths_ell,
                   source_columns)
 from .shortest_paths import EdgeList, multi_source_shortest_paths
-
-
-def _host_threads() -> int:
-    try:
-        return max(1, len(os.sched_getaffinity(0)))
-    except AttributeError:  # non-Linux
-        return os.cpu_count() or 1
 
 
 # below this K*E work estimate (sources x stored edges) the threaded host
