@@ -12,8 +12,10 @@ run itself, which the tests drive on the CPU at small sizes. A run
    which makes every input from the seed and warms every shape the window
    runs; ``setup_s`` is the time from the start of the process to the
    window;
-4. runs the window (``tracing.Window``, untraced), reads the device's
-   memory peak and, with ``--trace 1``, runs one more epoch or build with
+4. runs the window (``tracing.Window``, untraced; where the cell has an
+   end-to-end metric read from the device's trace and the run reports
+   it, the stage traces each unit of the window's work), reads the
+   device's memory peak and, with ``--trace 1``, runs one more epoch or build with
    the device's activity traced (``busy_s``, ``window_s``, the kernels)
    and one with every host op traced (the idle gaps): the profiler slows
    a host-paced loop, so the readers take rates and shares of time from
@@ -156,6 +158,11 @@ def run_cell(cell: Cell, seconds: float, trace: bool, t_start: float):
 
     stage = stage_module(cell.traffic["stage"])
     state = stage.setup(cell)
+    # an end-to-end metric read from the device's trace: in the run that
+    # reports it the stage traces each unit of its window's work (the
+    # device's activity alone) and counts the device's busy seconds
+    state["trace_window"] = not trace and any(
+        m["source"] == "device_trace" for m in cell.end_to_end)
     with tracing.Window(False, cell.device) as win:
         t_window = time.perf_counter()
         counters = stage.window(state, seconds)

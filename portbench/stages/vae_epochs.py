@@ -12,9 +12,15 @@ The window runs whole epochs as the stage's ``train`` does on this path:
 a permutation over the padded rows drawn on the device, ``train_epoch``
 over every batch, ``eval_epoch`` over the eval split, and one host read of
 both epochs' sums. The images trained are the real rows of each epoch.
+The host's dispatch paces the loop, so the window's rate follows the
+host's speed; the end-to-end metric is the device's busy time an epoch,
+for which the run that reports it traces each epoch of its window (the
+device's activity alone, read after the epoch's host read, inside the
+window), and the rate is a per-layer metric.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Dict
@@ -22,7 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .. import inputs, trainheld, yardstick
+from .. import inputs, tracing, trainheld, yardstick
 from ..reference import precision
 from ..reference import vae as ref_vae
 
@@ -96,18 +102,26 @@ def setup(cell) -> Dict:
 def window(st: Dict, seconds: float) -> Dict:
     eng, cell = st["engine"], st["cell"]
     dev, seed, bs = cell.device, cell.seed, st["bs"]
+    traced = st.get("trace_window", False)
     t0 = time.perf_counter()
-    epochs = failed = 0
+    epochs = failed = ops = 0
+    busy = 0.0
     ends, cpu = [t0], [time.thread_time()]
     while True:
-        gen = inputs.generator(dev, seed, 100, epochs)
-        perm = torch.randperm(st["tr"].shape[0], generator=gen, device=dev)
-        tr_m = eng.train_epoch(st["tr"], st["tr_mask"], perm, st["beta"],
-                               st["tr_steps"], bs, gen)
-        va = eng.eval_epoch(st["va"], st["va_mask"], st["beta"],
-                            st["va_steps"], bs,
-                            inputs.generator(dev, seed, 101, epochs))
-        vals = torch.cat([tr_m, va]).tolist()  # the epoch's one host read
+        with (tracing.Window(True, dev) if traced
+              else contextlib.nullcontext()) as w:
+            gen = inputs.generator(dev, seed, 100, epochs)
+            perm = torch.randperm(st["tr"].shape[0], generator=gen,
+                                  device=dev)
+            tr_m = eng.train_epoch(st["tr"], st["tr_mask"], perm,
+                                   st["beta"], st["tr_steps"], bs, gen)
+            va = eng.eval_epoch(st["va"], st["va_mask"], st["beta"],
+                                st["va_steps"], bs,
+                                inputs.generator(dev, seed, 101, epochs))
+            vals = torch.cat([tr_m, va]).tolist()  # the epoch's host read
+        if traced:
+            busy += w.trace.busy_s
+            ops += len(w.trace.dev_name)
         epochs += 1
         failed += 0 if all(np.isfinite(vals)) else st["tr_steps"]
         ends.append(time.perf_counter())
@@ -121,14 +135,25 @@ def window(st: Dict, seconds: float) -> Dict:
     cfg = cell.config
     fwd = yardstick.vae_forward_flops(cfg)
     steps = epochs * st["tr_steps"]
-    return {"epochs": epochs, "attempted": steps, "failed": failed,
-            "train_steps": steps,
-            "images": epochs * st["n_tr"],
-            "flops": bs * fwd * (3 * steps + epochs * st["va_steps"])}
+    out = {"epochs": epochs, "attempted": steps, "failed": failed,
+           "train_steps": steps,
+           "images": epochs * st["n_tr"],
+           "flops": bs * fwd * (3 * steps + epochs * st["va_steps"])}
+    if traced:
+        out.update(device_busy_s=busy, device_ops=ops)
+    return out
 
 
 def end_to_end(st: Dict, counters: Dict, window_s: float) -> Dict:
-    return {"vae_train_images_per_s": counters["images"] / window_s}
+    """The device's busy seconds an epoch: the union of kernel, copy and
+    set intervals of each epoch's trace, summed over the window's epochs
+    and shared among them; nothing where no device op ran."""
+    busy = counters.get("device_busy_s", 0.0)
+    if busy <= 0 or not counters["epochs"]:
+        return {}
+    st.setdefault("notes", {})["window_device_ops_an_epoch"] = (
+        counters["device_ops"] / counters["epochs"])
+    return {"vae_train_epoch_device_s": busy / counters["epochs"]}
 
 
 def release(st: Dict) -> None:

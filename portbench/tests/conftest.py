@@ -11,15 +11,11 @@ from portbench import harness
 
 MANIFEST = harness.load_json(harness.ROOT / "BENCHMARK.json")
 
-# the cells at test size: the same widths, a few batches
-TINY = {
-    "fmnist-spatial-geodesic.vae-train": {"data": {"train_size": 600,
-                                                   "eval_size": 300}},
-    "cifar10-spatial-geodesic.vae-train": {"data": {"train_size": 800,
-                                                    "eval_size": 260}},
-    "fmnist-spatial-geodesic.codebook": {"latent_images": 64,
-                                         "codebook": {"K": 16}},
-}
+# the cells at test size, one file a cell (``tiny/<workload>.json``, the
+# overrides of its configuration): the same widths, a few batches, so a
+# new cell brings its tiny size as a file of its own
+TINY = {p.stem: harness.load_json(p)
+        for p in sorted((Path(__file__).parent / "tiny").glob("*.json"))}
 
 
 @pytest.fixture(autouse=True, scope="session")

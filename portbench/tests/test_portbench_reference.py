@@ -93,6 +93,9 @@ FAULTS = [
      "medoid_bad"),
     ("fmnist-spatial-geodesic.codebook", _fewer_rounds, "medoid_bad"),
     ("fmnist-spatial-geodesic.codebook", _lost_neighbours, "knn_miss"),
+    ("cifar10-spatial-geodesic.codebook", _altered_lengths, "length_gap"),
+    ("cifar10-spatial-geodesic.codebook", _altered_code, "assign_bad"),
+    ("cifar10-spatial-geodesic.codebook", _lost_neighbours, "knn_miss"),
 ]
 
 

@@ -74,7 +74,7 @@ def rounds(workload: str, seed: int, reps: int, device=None,
                    else torch.device(device))
     cell.workdir = Path(tempfile.mkdtemp(prefix="portbench-cost-"))
     stage = harness.stage_module(cell.traffic["stage"])
-    vae = cell.traffic["stage"] == "vae_epochs"
+    vae = None  # the kind the stage reports, from its first unit of work
     out = {k: [] for k, _, _ in KINDS}
     spans_of = ("device", "host_ops")
     spans = {f"{kind}.{m}": [] for kind in spans_of for m in READERS}
@@ -85,8 +85,10 @@ def rounds(workload: str, seed: int, reps: int, device=None,
                 _reset_spans()
                 with _spans(not kind.endswith("_spans_off")), \
                         tracing.Window(traced, cell.device, host_ops) as w:
-                    stage.window(st, 0.0)
+                    counters = stage.window(st, 0.0)
                 out[kind].append(w.seconds)
+                if vae is None:
+                    vae = stage.info(st, counters)["stage"] == "vae_train"
                 if vae and kind in spans_of:
                     for m in READERS:
                         v = harness.reader(m)(None, {"stage": "vae_train"})
