@@ -11,6 +11,16 @@ As in the JAX package, a cosine scheduler anneals over ``max_epochs``, not
 checkpoints stay float32. Under ``torchrun`` the ranks train data-parallel
 (``parallel.init_distributed``) and rank 0 writes.
 
+``model.arch`` picks the model: ``vae`` (the default, the conv ``VAE``) or
+``autoencoder_kl`` (``models/autoencoder_kl.py``, FLUX.1's KL autoencoder,
+float32 only), whose other ``model`` keys are its constructor's
+(``block_out_channels``, ``layers_per_block``, ``latent_channels``,
+``norm_num_groups``, ``in_channels``, ``out_channels``) and ``beta``, the
+KL weight; its latents are spatial grids. Train it on ``data.name:
+synthetic_rgb`` with ``data.image_size`` (e.g. 256) and
+``data.synthetic_size`` (the images of the train split; the val split
+takes a sixth, at least 32).
+
 Run: ``python -m vqvae_tpu_torch.cli.train_vae --config <yaml>
 [--device cpu]``.
 """
@@ -23,7 +33,7 @@ from typing import Optional
 from ..config import Config, load_config
 from ..data import get_data_loaders
 from ..device import resolve_device
-from ..models import VAE
+from ..models import VAE, AutoencoderKL
 from ..models.cast import resolve_dtype
 from ..parallel.mesh import barrier, init_distributed
 from ..train import VAEEngine
@@ -41,13 +51,20 @@ def train_vae_main(cfg: Config, topology: Optional[str] = None,
     dev = resolve_device(device)
     seed = int(cfg.get("seed", 42))
     model_cfg = dict(cfg["model"])
+    arch = str(model_cfg.pop("arch", "vae"))
+    if arch not in ("vae", "autoencoder_kl"):
+        raise ValueError(f"model.arch {arch!r}: expected vae or "
+                         "autoencoder_kl")
     beta = float(model_cfg.pop("beta", 1.0))
-    topology = topology or model_cfg.pop("topology", "flat")
+    topology = topology or model_cfg.pop(
+        "topology", "spatial" if arch == "autoencoder_kl" else "flat")
     model_cfg.pop("topology", None)
     # e.g. "bfloat16": bf16 compute with float32 parameters (raises on a
     # name that is not a floating dtype)
     model_cfg["dtype"] = str(model_cfg.get("dtype", "float32"))
     resolve_dtype(model_cfg["dtype"])
+    if arch == "autoencoder_kl" and model_cfg.pop("dtype") != "float32":
+        raise ValueError("model.dtype: autoencoder_kl computes in float32")
 
     data_cfg = cfg["data"]
     train_loader, val_loader = get_data_loaders(
@@ -57,13 +74,18 @@ def train_vae_main(cfg: Config, topology: Optional[str] = None,
         augment=bool(data_cfg.get("augment", False)),
         seed=seed,
         synthetic_size=data_cfg.get("synthetic_size"),
+        image_size=int(data_cfg.get("image_size", 256)),
     )
-    model = VAE(topology=topology,
-                enc_channels=tuple(model_cfg.pop("enc_channels",
-                                                 (32, 64, 128))),
-                dec_channels=tuple(model_cfg.pop("dec_channels",
-                                                 (128, 64, 32))),
-                **model_cfg)
+    if arch == "autoencoder_kl":
+        model = AutoencoderKL(**{k: tuple(v) if isinstance(v, list) else v
+                                 for k, v in model_cfg.items()})
+    else:
+        model = VAE(topology=topology,
+                    enc_channels=tuple(model_cfg.pop("enc_channels",
+                                                     (32, 64, 128))),
+                    dec_channels=tuple(model_cfg.pop("dec_channels",
+                                                     (128, 64, 32))),
+                    **model_cfg)
 
     out_dir = Path(cfg["out_dir"])
     if topology == "spatial":

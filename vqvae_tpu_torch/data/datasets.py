@@ -8,7 +8,10 @@ images when the raw files are absent (``synthetic_size`` shrinks it;
 grayscale sets in [0, 1], CIFAR-10 normalized per channel (mean (0.4914,
 0.4822, 0.4465), std (0.2470, 0.2430, 0.2610)). Names match the reference
 factory ("MNIST", "FashionMNIST", "CIFAR10", case-insensitive, MNIST
-fallback).
+fallback). ``synthetic_rgb`` is the port's own: the procedural images at
+3 x ``image_size`` x ``image_size`` in [-1, 1] (``DatasetSplit.signed``),
+for image autoencoders trained at sizes no dataset in the repository has
+(``synthetic_size`` images, 1,024 / 256 by default).
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ class DatasetSplit:
     labels: np.ndarray  # (N,) int32
     name: str
     normalized: bool  # True if per-channel normalized (CIFAR)
+    signed: bool = False  # True if in [-1, 1] (synthetic_rgb)
 
     @property
     def num_classes(self) -> int:
@@ -50,6 +54,8 @@ class DatasetSplit:
 
     def denormalize(self, x: np.ndarray) -> np.ndarray:
         """Map model-space images back to [0,1] display space."""
+        if self.signed:
+            return (x + 1.0) * 0.5
         if not self.normalized:
             return x
         return x * CIFAR10_STD.reshape(1, 1, 1, -1) + CIFAR10_MEAN.reshape(1, 1, 1, -1)
@@ -170,10 +176,19 @@ def load_dataset(
     synthetic_size: Optional[int] = None,
     allow_synthetic: bool = True,
     seed: int = 0,
+    image_size: int = 256,
 ) -> DatasetSplit:
-    """Load one split of MNIST / FashionMNIST / CIFAR10 (NHWC float32)."""
+    """Load one split of MNIST / FashionMNIST / CIFAR10 (NHWC float32), or
+    make one of ``synthetic_rgb`` at ``image_size``."""
     key = str(name).strip().lower().replace("-", "").replace("_", "")
     root = Path(root)
+    if key == "syntheticrgb":
+        n = synthetic_size or (1024 if train else 256)
+        images, labels = _synthetic(key, train, n,
+                                    (image_size, image_size, 3), seed)
+        return DatasetSplit(images=images * 2.0 - 1.0, labels=labels,
+                            name="synthetic_rgb", normalized=False,
+                            signed=True)
     if key == "cifar10":
         loaded = _load_cifar10(root, train)
         shape, normalized = (32, 32, 3), True

@@ -118,14 +118,17 @@ def get_split_loader(
     augment: bool = False,
     seed: int = 0,
     synthetic_size: Optional[int] = None,
+    image_size: int = 256,
 ) -> DataLoader:
     """One of ``get_data_loaders``' two loaders, without building the other
     split (the train split shuffles and may augment; the val split's
-    synthetic stand-in has ``max(synthetic_size // 6, 32)`` images)."""
+    synthetic stand-in has ``max(synthetic_size // 6, 32)`` images;
+    ``image_size``: ``synthetic_rgb``'s side)."""
     if not train and synthetic_size is not None:
         synthetic_size = max(synthetic_size // 6, 32)
     split = load_dataset(name, root, train=train,
-                         synthetic_size=synthetic_size, seed=seed)
+                         synthetic_size=synthetic_size, seed=seed,
+                         image_size=image_size)
     return DataLoader(split, batch_size, shuffle=train,
                       augment=augment and train, seed=seed)
 
@@ -137,6 +140,7 @@ def get_data_loaders(
     augment: bool = False,
     seed: int = 0,
     synthetic_size: Optional[int] = None,
+    image_size: int = 256,
     **_compat_kwargs,
 ) -> Tuple[DataLoader, DataLoader]:
     """Train/val loader factory mirroring the reference API surface
@@ -144,5 +148,5 @@ def get_data_loaders(
     (num_workers, pin_memory, persistent_workers) are accepted and ignored.
     """
     return tuple(get_split_loader(name, train, root, batch_size, augment,
-                                  seed, synthetic_size)
+                                  seed, synthetic_size, image_size)
                  for train in (True, False))

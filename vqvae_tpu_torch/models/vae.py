@@ -279,6 +279,8 @@ class Decoder(nn.Module):
 class VAE(nn.Module):
     """Unified conv VAE. ``topology`` selects flat vs spatial latents."""
 
+    signed_images = False  # pixels in [0, 1] (or standardized)
+
     def __init__(self, in_channels: int = 1,
                  enc_channels: Sequence[int] = (32, 64, 128),
                  dec_channels: Sequence[int] = (128, 64, 32),
@@ -432,9 +434,10 @@ def elbo_loss(
     and ``mask.sum()`` are the global batch's (``parallel.global_value``:
     the global value, this rank's share of the gradient).
 
-    Recon is BCE-with-logits or MSE (on sigmoid(logits) when
-    ``mse_use_sigmoid``); KL is per-dim, clamped below by ``free_bits``
-    (flat) or ``spatial_free_bits`` (spatial, opt-in). Flat models with
+    Recon is BCE-with-logits, MSE (on sigmoid(logits) when
+    ``mse_use_sigmoid``) or L1 on the outputs (``"l1"``); KL is per-dim,
+    clamped below by ``free_bits`` (flat) or ``spatial_free_bits``
+    (spatial, opt-in). Flat models with
     ``capacity_max`` and ``capacity_anneal_steps`` > 0 regularize
     |KL - C(step)| ("abs") or max(KL - C(step), 0) ("clipped"), with C
     ramping linearly to ``capacity_max``.
@@ -446,6 +449,8 @@ def elbo_loss(
         lg = x_logits
         per = torch.clamp_min(lg, 0) - lg * x + torch.log1p(
             torch.exp(-lg.abs()))
+    elif recon_loss == "l1":  # LDM's |x - x_hat| (``AutoencoderKL``)
+        per = (x_logits - x).abs()
     else:
         pred = torch.sigmoid(x_logits) if mse_use_sigmoid else x_logits
         per = (pred - x) ** 2

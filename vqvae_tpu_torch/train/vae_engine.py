@@ -1,5 +1,8 @@
 """VAE training engine (flat and spatial topologies) — the port of
-``vqvae_tpu/train/vae_engine.py``.
+``vqvae_tpu/train/vae_engine.py``. It also trains the port's
+``AutoencoderKL`` (``models/autoencoder_kl.py``), which has the ``VAE``
+interface: its own initialization (``init_weights``), images in [-1, 1]
+(``signed_images``: evaluation's PSNR and SSIM are taken in [0, 1]).
 
 ``train`` takes JAX's two paths, chosen as JAX chooses them:
 
@@ -167,8 +170,15 @@ class VAEEngine:
         return 0, images.shape[0]
 
     def init_state(self) -> None:
-        """Flax-default weights drawn from ``seed``."""
-        flax_init_(self.model, seeded_generator("cpu", self.seed))
+        """The model's initial weights drawn from ``seed``: its own
+        ``init_weights`` where it has one (``AutoencoderKL``: PyTorch's
+        defaults), else flax's defaults."""
+        gen = seeded_generator("cpu", self.seed)
+        init = getattr(self.model, "init_weights", None)
+        if init is not None:
+            init(gen)
+        else:
+            flax_init_(self.model, gen)
 
     # -- steps ---------------------------------------------------------------
     def train_step(self, images: torch.Tensor, mask: torch.Tensor,
@@ -218,6 +228,8 @@ class VAEEngine:
                                            step=self.step, mesh=self.mesh)
         x_rec = torch.sigmoid(x_logits) if self.model.apply_sigmoid \
             else x_logits
+        if self.model.signed_images:  # PSNR and SSIM in [0, 1]
+            x_rec, images = (x_rec + 1.0) * 0.5, (images + 1.0) * 0.5
         x_rec = torch.clamp(x_rec, 0.0, 1.0)
         # the global batch's PSNR and SSIM (``psnr`` and ``ssim_simple``
         # with ``mask``) from summed squared errors, summed per-image SSIM
@@ -484,7 +496,8 @@ class VAEEngine:
         x_logits, _, _, _ = self.model(to_device(images, self.device),
                                        seeded_generator(self.device, 0))
         # display space is [0, 1]: sigmoid outputs are already there, while
-        # non-sigmoid reconstructions live in the dataset's normalized space
+        # non-sigmoid reconstructions live in the dataset's normalized (or
+        # [-1, 1]) space
         if self.model.apply_sigmoid:
             x_rec = torch.sigmoid(x_logits).cpu().numpy()
         else:
