@@ -9,8 +9,8 @@ Phases, each printed as it ends:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of every native source of both slices, all started together:
    ``csrc/knn_select.cu`` (kernels K1/K2), ``csrc/assign.cu`` (K3),
-   ``csrc/gather_min.cu`` (K4), each with nvcc for sm_90a, and the host
-   graph library (g++);
+   ``csrc/gather_min.cu`` (K4), ``csrc/batchnorm.cu`` (BN), each with nvcc
+   for sm_90a, and the host graph library (g++);
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    - K1/K2 at the codebook stage's shapes — 16,384 query rows against the
      full 983,040-row database of ``bench.py``-style latents (seed 0),
@@ -44,6 +44,17 @@ Phases, each printed as it ends:
      ``d[idx].amin(0)``. Its bound counts each distinct gathered row once
      (a repeat does not change a min), and its time leaves out the
      wrapper's index check;
+   - BN, the training BatchNorm's kernels, at the five norms of the
+     spatial preset's VAE at its batch of 256, in the layouts the model
+     hands them on the card (read by hooks from one training step): y and
+     dx within rtol 1e-6 or 1e-6 of the tensor's largest magnitude of the
+     plain version's, dscale, dbias and the running statistics within rtol
+     1e-6, and a second launch bit for bit equal to the first. Times
+     (device time a call by ``torch.profiler``, forward and backward
+     apart): the kernels, the plain version and, as a yardstick,
+     ``torch.nn.functional.batch_norm`` (torch's own statistics: the port
+     never calls it). Bound: 32 bytes an element (x twice and y forward; x
+     and dy twice and dx backward) at 3.35 TB/s;
 4. the codebook stage through its entry point ``build_codebook_main`` on
    the card at the full width of ``configs/fashionmnist/spatial/geodesic``
    (VAE 16 / 64-128-256 / 256-128-64, batch norm, 28 px; k=20 union
@@ -408,7 +419,7 @@ def phase_device():
 
 def phase_build():
     from vqvae_tpu_torch import native
-    from vqvae_tpu_torch.ops import assign, knn_select
+    from vqvae_tpu_torch.ops import assign, batchnorm, knn_select
     from vqvae_tpu_torch.ops import gather_min as gather_min_ops
 
     # one compiler per source, all started together; a failed build raises
@@ -418,6 +429,7 @@ def phase_build():
                   (("knn_select.cu", knn_select.build),
                    ("assign.cu", assign.build),
                    ("gather_min.cu", gather_min_ops.build),
+                   ("batchnorm.cu", batchnorm.build),
                    ("graph_core.cpp", native.build))}
         for name, build in builds.items():
             log(f"built {name}")
@@ -864,6 +876,156 @@ def phase_kernels_assign_gather():
     return out
 
 
+def batchnorm_inputs(preset: str = PRESET, batch: int = 256) -> list:
+    """[(shape, x channels-last, dy channels-last)] of each BatchNorm of
+    the preset's VAE, read by hooks from one training step on the card at
+    ``batch``."""
+    import torch
+
+    from vqvae_tpu_torch.config import load_config
+    from vqvae_tpu_torch.models import VAE
+    from vqvae_tpu_torch.models.vae import BatchNorm
+
+    def cl(t):
+        return (t.is_contiguous(memory_format=torch.channels_last)
+                and not t.is_contiguous())
+
+    arch = dict(load_config(ROOT / preset / "vae.yaml")["model"])
+    arch.pop("beta", None)
+    model = VAE(**arch).cuda().train()
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    xs, dys = {}, {}
+
+    def seen_x(m, args):
+        xs[m] = (tuple(args[0].shape), cl(args[0]))
+
+    def seen_dy(m, grad_in, grad_out):
+        dys[m] = cl(grad_out[0])
+
+    hooks = [m.register_forward_pre_hook(seen_x) for m in norms]
+    hooks += [m.register_full_backward_hook(seen_dy) for m in norms]
+    size = model.output_image_size
+    out = model(torch.rand(batch, size, size, model.in_channels,
+                           device="cuda"))
+    sum(o.float().sum() for o in out if torch.is_tensor(o)).backward()
+    for h in hooks:
+        h.remove()
+    return [(*xs[m], dys[m]) for m in norms]
+
+
+def check_batchnorm(shape, x_cl: bool, g_cl: bool, gen) -> dict:
+    """BN at one norm's input: kernels against the plain version, then
+    device times a call (forward, backward) beside the plain version's,
+    ``torch.nn.functional.batch_norm``'s and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vqvae_tpu_torch.ops.batchnorm import (batch_norm_train,
+                                               batch_norm_train_reference)
+
+    c = shape[1]
+
+    def fmt(t, channels_last):
+        return t.contiguous(memory_format=torch.channels_last
+                            if channels_last else torch.contiguous_format)
+
+    x = fmt(torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.3,
+            x_cl)
+    g = fmt(torch.randn(shape, generator=gen, device="cuda"), g_cl)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    shift = 0.2 * torch.randn(c, generator=gen, device="cuda")
+
+    def state():
+        return (scale.clone().requires_grad_(), shift.clone().requires_grad_(),
+                torch.zeros(c, device="cuda"), torch.ones(c, device="cuda"),
+                torch.zeros((), dtype=torch.int64, device="cuda"))
+
+    def forward(fn):
+        """fn's training forward from a fresh state: (y, x, state)."""
+        st = state()
+        xr = x.detach().clone(memory_format=torch.preserve_format)
+        return fn(xr.requires_grad_(), *st, 1e-5, 0.99), xr, st
+
+    def step(fn):
+        y, xr, (w, b, rm, rv, _) = forward(fn)
+        dx, dw, db = torch.autograd.grad(y, (xr, w, b), g)
+        return [y.detach(), dx, dw, db, rm, rv]
+
+    got = step(batch_norm_train)
+    want = step(batch_norm_train_reference)
+    again = step(batch_norm_train)
+    torch.cuda.synchronize()
+    gaps = {}
+    for i, name in enumerate(("y", "dx", "dscale", "dbias", "running_mean",
+                              "running_var")):
+        a, b, scaled = got[i], want[i], i < 2
+        if not torch.equal(a, again[i]):
+            fail(f"BN {shape}: {name} differs between two launches")
+        err = (a - b).abs()
+        allowed = 1e-6 * b.abs()
+        if scaled:
+            allowed = torch.maximum(allowed, 1e-6 * b.abs().max())
+        if bool((err > allowed).any()):
+            fail(f"BN {shape} ({x_cl}, {g_cl}): {name} past its limit by "
+                 f"{float((err - allowed).max()):.3e}")
+        gaps[name] = float(err.max() / b.abs().max())
+
+    def library(xr, w, b, rm, rv, tracked, eps, m):
+        return F.batch_norm(xr, rm, rv, w, b, True, 1.0 - m, eps)
+
+    def times(fn):
+        """Device ms a call of fn's forward and of its backward."""
+        y, xr, st = forward(fn)
+        with torch.no_grad():
+            fwd = sum(t for _, t in kernel_times(
+                lambda: fn(x, *st, 1e-5, 0.99), 10))
+        bwd = sum(t for _, t in kernel_times(
+            lambda: torch.autograd.grad(y, (xr, *st[:2]), g,
+                                        retain_graph=True), 10))
+        return fwd, bwd
+
+    _, xr, st = forward(batch_norm_train)
+
+    def both():
+        y = batch_norm_train(xr, *st, 1e-5, 0.99)
+        torch.autograd.grad(y, (xr, *st[:2]), g)
+
+    fwd, bwd = times(batch_norm_train)
+    plain = sum(times(batch_norm_train_reference))
+    lib = sum(times(library))
+    loop = cuda_ms(both, 20)
+    bound = 32.0 * x.numel() / PEAK_BYTES * 1e3
+    log(f"BN {tuple(shape)} x {'cl' if x_cl else 'nchw'} dy "
+        f"{'cl' if g_cl else 'nchw'}: largest gaps of the largest "
+        + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+        + f"; kernels forward {fwd:.4f} ms + backward {bwd:.4f} ms (event "
+        f"loop {loop:.4f} ms), bound {bound:.4f} ms, plain {plain:.4f} ms, "
+        f"F.batch_norm {lib:.4f} ms")
+    return {"fwd_ms": fwd, "bwd_ms": bwd, "loop_ms": loop, "bound_ms": bound,
+            "plain_ms": plain, "library_ms": lib,
+            "max_gap": max(gaps.values())}
+
+
+def phase_batchnorm() -> dict:
+    """BN at the five norms of the spatial preset's training step: the
+    sums over them (one training step's BatchNorm work) for the kernel
+    table."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = [check_batchnorm(shape, x_cl, g_cl, gen)
+            for shape, x_cl, g_cl in batchnorm_inputs()]
+    total = {k: sum(r[k] for r in rows) for k in rows[0] if k != "max_gap"}
+    ms = total["fwd_ms"] + total["bwd_ms"]
+    log(f"BN a training step (five norms): kernels {ms:.4f} ms (forward "
+        f"{total['fwd_ms']:.4f}, backward {total['bwd_ms']:.4f}), bound "
+        f"{total['bound_ms']:.4f} ms ({total['bound_ms'] / ms:.1%}), plain "
+        f"{total['plain_ms']:.4f} ms, F.batch_norm "
+        f"{total['library_ms']:.4f} ms")
+    return {"BN": {**total, "ms": ms, "device_ms": ms, "bound_by": "bytes",
+                   "max_abs_err": max(r["max_gap"] for r in rows)}}
+
+
 def pipeline_overrides(work: Path):
     """Overrides of the preset for the two orchestrated runs, rooted at
     ``work`` (the preset's relative ``experiments/...`` paths land under
@@ -882,19 +1044,21 @@ def pipeline_overrides(work: Path):
 
 def zero_launches():
     from vqvae_tpu_torch.ops import fused_select, nearest_codes
+    from vqvae_tpu_torch.ops.batchnorm import batch_norm_train
     from vqvae_tpu_torch.ops.gather_min import gather_min
 
-    for fn in (fused_select, nearest_codes, gather_min):
+    for fn in (fused_select, nearest_codes, gather_min, batch_norm_train):
         fn.launches = 0
     gather_min.route_launches = dict.fromkeys(gather_min.route_launches, 0)
 
 
 def read_launches():
     from vqvae_tpu_torch.ops import fused_select, nearest_codes
+    from vqvae_tpu_torch.ops.batchnorm import batch_norm_train
     from vqvae_tpu_torch.ops.gather_min import gather_min
 
     return {"K1/K2": fused_select.launches, "K3": nearest_codes.launches,
-            "K4": gather_min.launches}
+            "K4": gather_min.launches, "BN": batch_norm_train.launches}
 
 
 def quality_outputs(exp: Path) -> dict:
@@ -4179,7 +4343,8 @@ def main() -> None:
     kernels, exact_i = phase_kernels(z)
     t0 = time.perf_counter()
     kernels.update(phase_kernels_assign_gather())
-    log(f"K3/K4 kernel checks {time.perf_counter() - t0:.3f}s")
+    kernels.update(phase_batchnorm())
+    log(f"K3/K4/BN kernel checks {time.perf_counter() - t0:.3f}s")
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
@@ -4231,6 +4396,7 @@ def main() -> None:
                 f"K3@{K3_WIDE}": vanilla["launches"]["K3"],
                 f"K1@{CIFAR_D}": cifar["a"]["launches"]["codebook"]["K1/K2"],
                 f"K3@{CIFAR_D}": cifar["a"]["launches"]["quality"]["K3"],
+                "BN": pipe["launches"]["BN"],
                 **{f"K4@{w}": k4_launches[w] for w in K4_WIDTHS}}
     entries = []
     for kid, name, source, replaces in (
@@ -4247,7 +4413,9 @@ def main() -> None:
             (f"K3@{CIFAR_D}", f"nearest-code assign D={CIFAR_D}",
              "assign.cu", "vqvae_tpu/ops/pallas_assign.py:33"),
             *((f"K4@{w}", f"gather-min K={w}", "gather_min.cu",
-               "tools/bench_pallas_gather.py:39") for w in K4_WIDTHS)):
+               "tools/bench_pallas_gather.py:39") for w in K4_WIDTHS),
+            ("BN", "training BatchNorm, a step's five norms",
+             "batchnorm.cu", "none (flax's nn.BatchNorm is XLA's)")):
         k = kernels[kid]
         entries.append({
             "name": f"{kid.split('@')[0]} {name}", "route": "cuda",
@@ -4257,7 +4425,8 @@ def main() -> None:
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
-            **{key: k[key] for key in ("device_ms", "host_ms", "k4_route")
+            **{key: k[key] for key in ("device_ms", "host_ms", "k4_route",
+                                       "fwd_ms", "bwd_ms")
                if key in k}})
     log(f"card {card}; total {time.perf_counter() - t_start:.3f}s")
     print(json.dumps({"kernels": entries}), flush=True)

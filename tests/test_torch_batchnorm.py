@@ -30,6 +30,13 @@ statistics and upstream gradients are seeded ``default_rng`` draws.
   largest magnitude (measured 0.0064); the running statistics as in
   float32. The model-level bf16 limits are ``tests/test_torch_bf16.py``'s.
 
+On the CPU the norm takes the plain version
+(``ops.batchnorm.batch_norm_train_reference``) and launches no kernel;
+the kernels' grid (``grid_parts``) fills an H100's 132 SMs at every norm
+shape of the presets' batch of 256. The kernels themselves are held
+against the plain version on the card by
+``tests/test_torch_batchnorm_cuda.py``.
+
 ``PYTHONPATH=. python tests/test_torch_batchnorm.py`` prints the measured
 gaps.
 """
@@ -45,6 +52,10 @@ import torch
 from vqvae_tpu_torch.config import load_config
 from vqvae_tpu_torch.models import VAE
 from vqvae_tpu_torch.models.vae import BatchNorm
+from vqvae_tpu_torch.ops.batchnorm import (batch_norm_train,
+                                           batch_norm_train_reference,
+                                           grid_parts)
+from vqvae_tpu_torch.utils import profiling
 
 PRESETS = {"spatial": "configs/fashionmnist/spatial/geodesic/vae.yaml",
            "flat": "configs/fashionmnist/vanilla/geodesic/vae.yaml"}
@@ -185,6 +196,58 @@ def test_batchnorm_bf16_input_matches_flax(topology):
         assert np.abs(got[3] - want[3]).max() <= \
             2.0 ** -6 * np.abs(want[3]).max(), shape
         _close_stats(got[1:3], want[1:3], shape)
+
+
+@pytest.mark.parametrize("topology", ["spatial", "flat"])
+def test_cpu_input_takes_the_plain_path(topology):
+    """A CPU input runs the plain version, bit for bit, and neither
+    launches a kernel nor records the kernels' counter."""
+    profiling.reset_spans()
+    try:
+        for i, (shape, cl) in enumerate(_norm_inputs(topology, 8)):
+            inp = _inputs(shape, seed=30 + i)
+            before = batch_norm_train.launches
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]):
+                got = _port(inp, channels_last=cl)
+            assert batch_norm_train.launches == before
+            assert not [r for r in profiling.spans()
+                        if r.name == "vqvae.vae.batchnorm_kernel"]
+            x = torch.from_numpy(inp["x"])
+            if cl:
+                x = x.contiguous(memory_format=torch.channels_last)
+            x.requires_grad_()
+            w = torch.from_numpy(inp["scale"]).requires_grad_()
+            b = torch.from_numpy(inp["bias"]).requires_grad_()
+            rm = torch.from_numpy(inp["mean"].copy())
+            rv = torch.from_numpy(inp["var"].copy())
+            y = batch_norm_train_reference(x, w, b, rm, rv,
+                                           torch.zeros((), dtype=torch.long),
+                                           EPS, MOMENTUM)
+            (y * torch.from_numpy(inp["g"])).sum().backward()
+            for name, a, want in zip(
+                    ("y", "running_mean", "running_var", "dx", "dscale",
+                     "dbias"), got, (y, rm, rv, x.grad, w.grad, b.grad)):
+                assert np.array_equal(a, want.detach().numpy()), \
+                    (shape, name)
+    finally:
+        profiling.reset_spans()
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_kernel_grid_fills_the_card(channels_last):
+    """At the presets' batch of 256, every norm's launch spans at least
+    one block per SM of an H100 (132), each thread walks at least four
+    values, and the grid's second dimension stays in CUDA's range."""
+    shapes = {s[1:] for t in ("spatial", "flat")
+              for s, _ in _norm_inputs(t, 256)}
+    for c, h, w in shapes:
+        parts = grid_parts(256, c, h * w, channels_last, 132)
+        columns = -(-c // 32) if channels_last else c
+        assert 132 <= columns * parts, (c, h, w)
+        per_thread = 256 * h * w / (parts * (8 if channels_last else 256))
+        assert per_thread >= 4 and parts <= 65535, (c, h, w)
+    assert grid_parts(1, 1, 1, channels_last, 132) == 1
 
 
 if __name__ == "__main__":  # the measured gaps behind the bounds

@@ -14,7 +14,8 @@ import pytest
 
 from vqvae_tpu_torch._build import CSRC_DIR, NVCC_FLAGS
 
-_C_TYPES = {"int": ctypes.c_int, "void*": ctypes.c_void_p,
+_C_TYPES = {"int": ctypes.c_int, "double": ctypes.c_double,
+            "float": ctypes.c_float, "void*": ctypes.c_void_p,
             "const void*": ctypes.c_void_p, "const char*": ctypes.c_char_p}
 
 
@@ -34,6 +35,7 @@ def _c_functions(source: str):
     ("knn_select", "knn_select.cu"),
     ("assign", "assign.cu"),
     ("gather_min", "gather_min.cu"),
+    ("batchnorm", "batchnorm.cu"),
 ])
 def test_signatures_match_the_source(module, source):
     mod = importlib.import_module(f"vqvae_tpu_torch.ops.{module}")

@@ -370,6 +370,29 @@ def test_vae_span_readers_read_the_first_traced_epoch(monkeypatch, metric,
     assert read(None, VAE_INFO) is None
 
 
+def test_batchnorm_kernel_calls_reader_counts_a_step(monkeypatch):
+    """The counter of the norms' kernels, forward on the step's thread
+    and backward on autograd's (no parent), summed over the first traced
+    epoch's steps; none outside a step, none in a program without it."""
+    read = harness.reader("vae_train.batchnorm_kernel_calls")
+    rows = _vae_rows(0)
+    counted = list(rows)
+    for s in (0, 10_000_000):
+        counted += [_row("vqvae.vae.batchnorm_kernel", s + t, s + t,
+                         "vqvae.vae.batchnorm", 1) for t in (1, 2, 3)]
+        counted += [_row("vqvae.vae.batchnorm_kernel", s + 7, s + 7,
+                         None, 1)]
+    outside = _row("vqvae.vae.batchnorm_kernel", 25_000_000, 25_000_000,
+                   None, 1)
+    _table(monkeypatch, counted + [outside] + _vae_rows(100))
+    assert read(None, VAE_INFO) == 4.0
+    assert read(None, CB_INFO) is None
+    _table(monkeypatch, rows)
+    assert read(None, VAE_INFO) is None
+    monkeypatch.delattr(profiling, "spans")
+    assert read(None, VAE_INFO) is None
+
+
 def test_ell_sweeps_reader_sums_the_first_build(monkeypatch):
     read = harness.reader("codebook.ell_sweeps")
     build = [_row("vqvae.codebook.build", 0, 100),

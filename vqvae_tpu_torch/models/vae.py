@@ -62,66 +62,19 @@ from .cast import (Conv2d, ConvTranspose2d, Linear, resolve_dtype,
 _TRUNC_STD = 0.87962566103423978
 
 
-class _TrainNorm(torch.autograd.Function):
-    """flax's training-mode normalization ``(x - mean) * (rsqrt(var +
-    eps) * scale) + bias`` of a float32 ``xf`` by its batch statistics
-    (float64 ``mean`` and ``inv`` = rsqrt(var + eps), ``xd`` = ``xf`` in
-    float64), with the gradient that autograd would take through flax's
-    statistics, in closed form: ``dx = scale * inv * (dy - E[dy] - xhat *
-    E[dy * xhat])``, the expectations over the global batch of ``n`` rows
-    (summed over ``mesh``'s ranks); the scale and shift get this rank's
-    sums. Both are evaluated in float64 and rounded once to float32: in
-    float32, ``x - mean`` and ``dy - E[dy] - ...`` cancel where a channel's
-    mean is large next to its spread, and expose the rounding of their
-    terms."""
-
-    @staticmethod
-    def forward(ctx, xf, xd, mean, inv, weight, bias, n, mesh):
-        ctx.save_for_backward(xf, mean, inv, weight, n)
-        ctx.mesh = mesh
-        mul = inv * weight.double()
-        return torch.addcmul((bias.double() - mean * mul)[:, None, None],
-                             xd, mul[:, None, None]).float()
-
-    @staticmethod
-    def backward(ctx, dy):
-        with span("vqvae.vae.batchnorm_backward"):
-            xf, mean, inv, weight, n = ctx.saved_tensors
-            dy = dy.double()
-            xhat = torch.addcmul((-mean * inv)[:, None, None], xf.double(),
-                                 inv[:, None, None])
-            local = _channel_sums(dy, dy * xhat)
-            sdy, sdyx = all_reduce_sum(local, ctx.mesh) / n
-            mul = weight.double() * inv
-            dx = torch.addcmul((-mul * sdy)[:, None, None], dy,
-                               mul[:, None, None])
-            dx = torch.addcmul(dx, xhat, (-mul * sdyx)[:, None, None])
-            db, dw = local.float()
-            return dx.float(), None, None, None, dw, db, None, None
-
-
-def _channel_sums(*ts: torch.Tensor) -> torch.Tensor:
-    """(len(ts), C): each float64 (B, C, H, W) tensor summed over B, H and
-    W. A float32 value or the product of two enters exactly, and the sum
-    of a batch carries no rounding that float32 can see, so the statistics
-    do not depend on the order of summation (the thread count, the
-    device)."""
-    return torch.stack([t.sum((0, 2, 3)) for t in ts])
-
-
 class BatchNorm(nn.BatchNorm2d):
     """flax's ``nn.BatchNorm`` with ``nn.BatchNorm2d``'s state-dict names.
 
-    Training (one path for one process and a mesh): the per-channel count,
-    sum and sum of squares in float64 (``_channel_sums``), summed over
-    ``self.mesh``'s ranks when one is set (``set_batchnorm_mesh``), and
-    flax's fast biased variance ``max(E[x^2] - E[x]^2, 0)``; then
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` and its gradient
-    (``_TrainNorm``: the gradient reaches every rank's rows), rounded to
-    float32 and cast to the input's dtype; ``running = m * running + (1 -
-    m) * batch`` with flax's momentum ``m`` = 0.99 and the float32 mean
-    and variance (torch's update would use momentum 0.1 and the unbiased
-    variance).
+    Training (one path for one process and a mesh,
+    ``ops.batchnorm.batch_norm_train``: hand-written kernels on a card, the
+    plain version on the CPU): the per-channel count, sum and sum of
+    squares in float64, summed over ``self.mesh``'s ranks when one is set
+    (``set_batchnorm_mesh``), and flax's fast biased variance ``max(E[x^2]
+    - E[x]^2, 0)``; then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
+    and its gradient (it reaches every rank's rows), rounded to float32 and
+    cast to the input's dtype; ``running = m * running + (1 - m) * batch``
+    with flax's momentum ``m`` = 0.99 and the float32 mean and variance
+    (torch's update would use momentum 0.1 and the unbiased variance).
 
     Eval mode: ``nn.BatchNorm2d``'s for float32; a half precision input is
     normalized by the running statistics in float32 and cast back.
@@ -141,29 +94,12 @@ class BatchNorm(nn.BatchNorm2d):
         return ((x.float() - self.running_mean[:, None, None])
                 * mul[:, None, None] + self.bias[:, None, None]).to(x.dtype)
 
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        m = self.flax_momentum
-        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-        self.num_batches_tracked.add_(1)
-
     def _forward_train(self, x: torch.Tensor) -> torch.Tensor:
         with span("vqvae.vae.batchnorm"):
-            xf = x.float()
-            with torch.no_grad():
-                c = xf.shape[1]
-                xd = xf.double()
-                stats = all_reduce_sum(torch.cat([
-                    _channel_sums(xd, xd * xd).reshape(-1),
-                    xd.new_full((1,), float(xf.numel() // max(c, 1)))]),
-                    self.mesh)
-                n = torch.clamp_min(stats[2 * c], 1.0)
-                mean = stats[:c] / n
-                var = torch.clamp_min(stats[c:2 * c] / n - mean * mean, 0.0)
-                self._update_running(mean.float(), var.float())
-            return _TrainNorm.apply(xf, xd, mean,
-                                    torch.rsqrt(var + self.eps), self.weight,
-                                    self.bias, n, self.mesh).to(x.dtype)
+            return batch_norm_train(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, self.num_batches_tracked, self.eps,
+                self.flax_momentum, self.mesh)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -483,4 +419,5 @@ def elbo_loss(
 
 
 # last: importing ``utils`` imports this module's ``VAE`` (utils/checkpoint)
+from ..ops.batchnorm import batch_norm_train  # noqa: E402
 from ..utils.profiling import span  # noqa: E402
