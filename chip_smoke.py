@@ -1375,7 +1375,7 @@ def phase_train_step_reference(seed: int = 42):
         f"biases skipped); BatchNorm statistics within rtol 1e-4")
 
     # the card's step at the preset's batch: wall and device time (the
-    # cost of flax's BatchNorm statistics: tools/ab_vae_step)
+    # cost of flax's BatchNorm statistics: CHANGES.md, the VAE step A/B)
     eng = VAEEngine(copy.deepcopy(model), lr=lr, seed=seed, device="cuda")
     batch = (images.cuda(), mask.cuda(), 1.0,
              seeded_generator("cuda", seed, 1))
@@ -1913,7 +1913,7 @@ TF_BF16_LIMITS = {"loss": 6.3e-5, "grad": 9.4e-2}
 # the card from the CPU's state before it, against the CPU's same step: the
 # step's (loss, recon, kl) gap relative to the largest, and phase 7's
 # gradient measure. Each limit sits between the largest f32 gap and the
-# smallest TF32 gap of tools/ab_vae_epoch_gaps over seeds 0-7 and 42 (27
+# smallest TF32 gap over seeds 0-7 and 42 (CHANGES.md, the epoch check; 27
 # steps a preset; an H100 80GB HBM3 at 700 W), near their geometric mean. FashionMNIST: loss
 # f32 <= 1.94e-7, TF32 >= 1.50e-6; gradient f32 <= 1.35e-3, TF32 >= 7.0e-3.
 # CIFAR-10: loss 1.90e-7 and 7.2e-7; gradient 5.7e-4 and 4.7e-3. PERF.md.
@@ -3798,7 +3798,7 @@ def _p18c(spec: dict, mesh, dev) -> dict:
     from vqvae_tpu_torch.models.vqvae_baseline import (CodebookState,
                                                        ema_update, quantize)
     from vqvae_tpu_torch.parallel import (HOST_COPIES, all_gather_rows,
-                                          barrier, get_mesh)
+                                          barrier, get_mesh, shard_slice)
     from vqvae_tpu_torch.train import (TransformerEngine, VAEEngine,
                                        VQVAEEngine)
     from vqvae_tpu_torch.train.vae_engine import seeded_generator
@@ -3891,7 +3891,7 @@ def _p18c(spec: dict, mesh, dev) -> dict:
         return eng
 
     def vae_step(eng, s, st):
-        mine = eng.local_rows(bs)
+        mine = shard_slice(bs, eng.mesh)
         ib = vdata["perm"][s * bs:(s + 1) * bs][mine]
         m = eng.train_step(vdata["data"][ib], vdata["mask"][ib], 1.0,
                            seeded_generator(dev, 42, 1, s), nan_guard=True,
@@ -3929,7 +3929,7 @@ def _p18c(spec: dict, mesh, dev) -> dict:
             seed=42, device=dev, mesh=m)
 
     def tf_step(eng, s, st):
-        mine = eng.local_rows(tbs)
+        mine = shard_slice(tbs, eng.mesh)
         loss = eng.train_step(*(a[mine].to(dev) for a in tb[s]), None)
         return {"loss": cpu(loss)[None], "grads": grads_of(eng),
                 "state": {k: cpu(v) for k, v in
@@ -3961,7 +3961,7 @@ def _p18c(spec: dict, mesh, dev) -> dict:
                            device=dev, mesh=m)
 
     def vq_step(eng, s, st):
-        mine = eng.local_rows(bbs)
+        mine = shard_slice(bbs, eng.mesh)
         sl = slice(s * bbs + mine.start, s * bbs + mine.stop)
         xs = bx[sl].to(dev)
         cb = CodebookState(**st["cb"])

@@ -21,8 +21,7 @@ import torch
 from vqvae_tpu_torch.ops.gather_min import (CHUNK, gather_min,
                                             gather_min_reference,
                                             gather_min_route)
-from vqvae_tpu_torch.tools import (ab_assign_gather, ab_vae_epoch_gaps,
-                                   ab_vae_step, bench_gather_min)
+from vqvae_tpu_torch.tools import bench_gather_min
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
@@ -113,15 +112,6 @@ def test_route_rule(r, n, k, route):
     assert gather_min_route(r, n, k) == route
 
 
-def test_crossover_mode_and_ab_tool_refuse_without_card_or_trees():
-    """The A/B tools refuse no trees; the VAE tools' per-tree child source
-    (run on the card) compiles here."""
+def test_crossover_mode_refuses_without_card():
     with pytest.raises(SystemExit, match="card"):
         bench_gather_min.main(["--crossover", "5", "--device", "cpu"])
-    for tool in (ab_assign_gather, ab_vae_step, ab_vae_epoch_gaps):
-        with pytest.raises(SystemExit, match="usage"):
-            tool.main([])
-    compile(ab_vae_step._CHILD, "ab_vae_step child", "exec")
-    smoke = str(ab_vae_epoch_gaps.SMOKE)
-    compile(ab_vae_epoch_gaps._CHILD % {"smoke": smoke},
-            "ab_vae_epoch_gaps child", "exec")

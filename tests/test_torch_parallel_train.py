@@ -95,7 +95,7 @@ def capture(engine):
 
 
 def main():
-    from vqvae_tpu_torch.parallel import init_distributed
+    from vqvae_tpu_torch.parallel import init_distributed, shard_slice
     mesh = init_distributed(device="cpu")
     tmp = sys.argv[1]
     setup = torch.load(os.path.join(tmp, "setup.pt"), weights_only=False)
@@ -111,7 +111,7 @@ def main():
                         mesh=mesh)
         eng.step = case["step"]
         grads = capture(eng)
-        mine = eng.local_rows(8)
+        mine = shard_slice(8, mesh)
         m = eng.train_step(torch.from_numpy(case["x"][mine]),
                            torch.from_numpy(case["mask"][mine]), 1.0, None,
                            nan_guard=True)
@@ -128,7 +128,7 @@ def main():
     model.load_state_dict(t["sd"])
     eng = TransformerEngine(model, lr=3e-4, seed=0, device="cpu", mesh=mesh)
     grads = capture(eng)
-    mine = eng.local_rows(8)
+    mine = shard_slice(8, mesh)
     loss = eng.train_step(*(torch.from_numpy(t[k][mine])
                             for k in ("x", "y", "lab", "mask")), None)
     out["tf/loss"] = loss.numpy()
@@ -143,7 +143,7 @@ def main():
     eng = VQVAEEngine(model, n_codes=b["n_codes"], lr=b["lr"],
                       grad_clip=1.0, bank_size=64, seed=0, device="cpu",
                       mesh=mesh)
-    mine = eng.local_rows(8)
+    mine = shard_slice(8, mesh)
     cb = CodebookState(**b["cb"])
     cb, bank, m = eng.train_step(cb, torch.zeros(64, b["arch"]["z_channels"]),
                                  torch.from_numpy(b["x"][mine]),

@@ -61,8 +61,7 @@
 //   over the slices in code order (earlier slices hold lower indices, so
 //   strict < keeps jnp.argmin's first index) and the distance. With one
 //   slice the main kernel writes the outputs itself.
-// Measured times are in PERF.md (chip_smoke.py, tools/ab_assign_gather.py,
-// tools/tune_assign.py).
+// Measured times are in PERF.md (chip_smoke.py, tools/tune_assign.py).
 
 #include <cuda_runtime.h>
 #include <limits.h>

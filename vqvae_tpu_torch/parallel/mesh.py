@@ -169,6 +169,11 @@ def shard_range(n: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
     return start, min(start + per, n)
 
 
+def shard_slice(n: int, mesh: Optional[Mesh]) -> slice:
+    """``shard_range`` as a slice: this rank's rows of a global batch."""
+    return slice(*shard_range(n, mesh))
+
+
 def barrier(mesh: Optional[Mesh]) -> None:
     if mesh is not None and mesh.distributed:
         dist.barrier(group=mesh.group)

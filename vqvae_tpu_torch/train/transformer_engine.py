@@ -46,10 +46,10 @@ import torch
 from ..device import resolve_device
 from ..models.transformer import (Transformer, cross_entropy_loss,
                                   transformer_init_)
-from ..parallel.mesh import get_mesh, shard_range, sum_gradients
+from ..parallel.mesh import get_mesh, shard_slice, sum_gradients
 from ..utils.checkpoint import cpu_state_dict, save_checkpoint
+from .loop import WriteCadence, padded_split, seeded_generator, to_device
 from .state import make_optimizer
-from .vae_engine import seeded_generator, to_device
 
 
 class TransformerEngine:
@@ -94,10 +94,6 @@ class TransformerEngine:
                                   label_smoothing=self.label_smoothing,
                                   mesh=self.mesh)
 
-    def local_rows(self, n: int) -> slice:
-        """This rank's rows of a global batch of ``n`` rows."""
-        return slice(*shard_range(n, self.mesh))
-
     def train_step(self, x, targets, labels, mask,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
         self.model.train()
@@ -123,7 +119,7 @@ class TransformerEngine:
         total = None
         n = 0
         for i, batch in enumerate(loader.epoch(epoch)):
-            mine = self.local_rows(len(batch[0]))
+            mine = shard_slice(len(batch[0]), self.mesh)
             x, y, lab, mask = (to_device(np.asarray(a)[mine], self.device)
                                for a in batch)
             x, y, lab = x.long(), y.long(), lab.long()
@@ -139,25 +135,12 @@ class TransformerEngine:
     def device_dataset(self, loader):
         """The loader's arrays on the device, padded to whole batches:
         (x, y, labels, mask, n_steps, n_pad)."""
-        bs = loader.batch_size
-        x, y = loader.x, loader.y
         lab = (loader.labels if loader.labels is not None
-               else np.zeros(len(x), np.int32))
-        n = len(x)
-        n_steps = max(1, (n + bs - 1) // bs)
-        n_pad = n_steps * bs
-        mask = np.zeros(n_pad, np.float32)
-        mask[:n] = 1.0
-
-        def put(a):
-            a = np.asarray(a)
-            if n_pad > n:
-                a = np.concatenate([a, np.zeros((n_pad - n, *a.shape[1:]),
-                                                a.dtype)])
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        return (put(x.astype(np.int64)), put(y.astype(np.int64)),
-                put(np.asarray(lab, np.int64)), put(mask), n_steps, n_pad)
+               else np.zeros(len(loader.x), np.int32))
+        tensors, mask, n_steps, n_pad = padded_split(
+            [np.asarray(a, np.int64) for a in (loader.x, loader.y, lab)],
+            loader.batch_size, self.device)
+        return (*tensors, mask, n_steps, n_pad)
 
     def train(
         self,
@@ -177,11 +160,11 @@ class TransformerEngine:
         best_epoch = best_step = 0
         bs = train_loader.batch_size
         x, y, lab, mask, n_steps, n_pad = self.device_dataset(train_loader)
-        mine = self.local_rows(bs)
+        mine = shard_slice(bs, self.mesh)
         eval_idx = torch.arange(n_steps * bs, device=self.device).view(
             n_steps, bs)[:, mine]
 
-        save_stride, write_est, last_write = 1, 0.0, 0
+        cadence, last_write = WriteCadence(), 0
         for epoch in range(1, num_epochs + 1):
             t_ep = time.perf_counter()
             perm = torch.randperm(
@@ -212,20 +195,16 @@ class TransformerEngine:
                          self.model.state_dict().items()},
                         copy.deepcopy(self.opt.state_dict()))
                 best_epoch, best_step = epoch, self.step
-            # weights-only latest after an epoch, as often as the writes
-            # allow: while one write costs more than an epoch, write every
-            # few epochs instead (the JAX engine's adaptive cadence)
+            # weights-only latest.pt at the rate one write sustains
             dt_epoch = time.perf_counter() - t_ep
-            if ckpt is not None and (epoch - last_write >= save_stride
+            if ckpt is not None and (epoch - last_write >= cadence.stride
                                      or epoch == num_epochs):
                 t_ck = time.perf_counter()
                 save_checkpoint(ckpt / "latest.pt", {
                     "model_state_dict": cpu_state_dict(self.model),
                     "step": self.step, "epoch": epoch})
                 last_write = epoch
-                write_est = max(time.perf_counter() - t_ck, 0.7 * write_est)
-                save_stride = max(1, min(25, int(write_est
-                                                 / max(dt_epoch, 1e-3))))
+                cadence.record(time.perf_counter() - t_ck, dt_epoch)
         if ckpt is not None and best is not None:
             save_checkpoint(ckpt / "best.pt", {
                 "model_state_dict": {k: v.cpu() for k, v in best[0].items()},

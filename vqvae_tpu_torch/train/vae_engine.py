@@ -66,27 +66,15 @@ from ..device import resolve_device
 from ..eval.metrics import ssim_simple
 from ..models.vae import VAE, flax_init_, reparameterize, set_batchnorm_mesh
 from ..parallel.mesh import (all_gather_rows, all_reduce_sum, get_mesh,
-                             is_primary, shard_range, sum_gradients)
+                             is_primary, shard_range, shard_slice,
+                             sum_gradients)
 from ..utils.checkpoint import cpu_state_dict, save_checkpoint
 from ..utils.images import save_image_grid
 from ..utils.latents import save_latents
 from ..utils.profiling import span
+from .loop import (WriteCadence, padded_split, seeded_generator, to_device,
+                   zero_nonfinite_grads_)
 from .state import make_optimizer
-
-
-def seeded_generator(device, *entropy: int) -> torch.Generator:
-    """A generator on ``device`` seeded from the integers ``entropy``."""
-    seed = int(np.random.SeedSequence(list(entropy)).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(seed)
-
-
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device`` (through pinned memory, without waiting
-    for the device, on CUDA)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 def _device_copy(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -150,12 +138,8 @@ class VAEEngine:
                                   cosine_t_max, steps_per_epoch)
         self.step = 0  # optimizer updates so far (the loss's capacity step)
 
-    def local_rows(self, n: int) -> slice:
-        """This rank's rows of a global batch of ``n`` rows."""
-        return slice(*shard_range(n, self.mesh))
-
     def _noise_rows(self, n: int) -> Tuple[int, int]:
-        return self.local_rows(n).start, n
+        return shard_range(n, self.mesh)[0], n
 
     def _rows_of(self, images: torch.Tensor, noise_rows, generator):
         """``noise_rows``, or the whole batch at world size 1; a rank of a
@@ -204,12 +188,9 @@ class VAEEngine:
             total.backward()
             sum_gradients(self.model.parameters(), self.mesh)
         if nan_guard:
-            with span("vqvae.vae.guard"), torch.no_grad():
-                finite = torch.isfinite(total.detach())
-                for p in self.model.parameters():
-                    if p.grad is not None:
-                        p.grad = torch.where(finite, p.grad,
-                                             torch.zeros_like(p.grad))
+            with span("vqvae.vae.guard"):
+                zero_nonfinite_grads_(torch.isfinite(total.detach()),
+                                      self.model.parameters())
         with span("vqvae.vae.optimizer"):
             self.opt.step()
         self.step += 1
@@ -250,18 +231,9 @@ class VAEEngine:
     def device_dataset(self, loader: DataLoader, batch_size: int):
         """The split zero-padded to a whole number of batches, on the
         device: (images, mask, steps, padded rows)."""
-        images = loader.split.images
-        n = images.shape[0]
-        n_steps = max(1, (n + batch_size - 1) // batch_size)
-        n_pad = n_steps * batch_size
-        mask = np.zeros((n_pad,), np.float32)
-        mask[:n] = 1.0
-        if n_pad > n:
-            images = np.concatenate(
-                [images, np.zeros((n_pad - n, *images.shape[1:]),
-                                  images.dtype)])
-        return (to_device(images, self.device), to_device(mask, self.device),
-                n_steps, n_pad)
+        (images,), mask, n_steps, n_pad = padded_split(
+            [loader.split.images], batch_size, self.device)
+        return images, mask, n_steps, n_pad
 
     def train_epoch(self, data: torch.Tensor, mask_all: torch.Tensor,
                     perm: torch.Tensor, beta: float, n_steps: int,
@@ -272,7 +244,7 @@ class VAEEngine:
         data parallelism each step takes this rank's rows of the batch."""
         with span("vqvae.vae.train_epoch"):
             sums = torch.zeros(3, device=self.device)
-            mine = self.local_rows(batch_size)
+            mine = shard_slice(batch_size, self.mesh)
             for i in range(n_steps):
                 with span("vqvae.vae.train_step"):
                     ib = perm[i * batch_size:(i + 1) * batch_size][mine]
@@ -290,7 +262,7 @@ class VAEEngine:
         """The padded rows in order; returns the device sums of (loss,
         recon, kl, PSNR * n, SSIM * n, n), n the batch's real rows."""
         sums = torch.zeros(6, device=self.device)
-        mine = self.local_rows(batch_size)
+        mine = shard_slice(batch_size, self.mesh)
         for i in range(n_steps):
             with span("vqvae.vae.eval_step"):
                 sl = slice(i * batch_size + mine.start,
@@ -313,7 +285,7 @@ class VAEEngine:
         acc: Optional[Dict[str, torch.Tensor]] = None
         n_batches = 0
         for images, _, mask in loader.epoch(epoch):
-            mine, rows = self.local_rows(len(mask)), \
+            mine, rows = shard_slice(len(mask), self.mesh), \
                 self._noise_rows(len(mask))
             x = to_device(images[mine], self.device)
             m = to_device(mask[mine], self.device)
@@ -359,7 +331,7 @@ class VAEEngine:
         num_pixels = int(np.prod(train_loader.split.image_shape))
         best_sd = _device_copy(self.model)
         best_epoch = 0
-        save_stride, write_est, last_best_write = 1, 0.0, 0
+        cadence, last_best_write = WriteCadence(), 0
         fast = not train_loader.augment
         if fast:
             bs = train_loader.batch_size
@@ -424,17 +396,14 @@ class VAEEngine:
                 # weights-only best.pt at the rate one write sustains,
                 # gated on epochs since the last write, as JAX's cadence
                 if checkpoint_dir is not None and is_primary() and (
-                        epoch - last_best_write >= save_stride
+                        epoch - last_best_write >= cadence.stride
                         or epoch == num_epochs):
                     t_ck = time.perf_counter()
                     save_checkpoint(Path(checkpoint_dir) / "best.pt",
                                     {"model_state_dict": _cpu(best_sd),
                                      "epoch": epoch})
                     last_best_write = epoch
-                    write_est = max(time.perf_counter() - t_ck,
-                                    0.7 * write_est)
-                    save_stride = max(1, min(
-                        25, int(write_est / max(dt_epoch, 1e-3))))
+                    cadence.record(time.perf_counter() - t_ck, dt_epoch)
             else:
                 no_improve += 1
                 if early_stop and no_improve >= early_stop:
@@ -472,7 +441,7 @@ class VAEEngine:
         zs, mus, lvs = [], [], []
         for s in range(0, images.shape[0], bs):
             b = min(bs, images.shape[0] - s)
-            mine = self.local_rows(b)
+            mine = shard_slice(b, self.mesh)
             x = to_device(images[s + mine.start:s + mine.stop], self.device)
             mu, logvar = self.model.encode(x)
             z = reparameterize(mu, logvar, gen, rows=(mine.start, b))

@@ -56,11 +56,12 @@ from ..models.vqvae_baseline import (VQVAE, CodebookState, ema_update,
                                      quantize, reseed_dead_codes,
                                      straight_through)
 from ..parallel.mesh import (all_reduce_sum, get_mesh, global_value,
-                             is_primary, shard_range, sum_gradients)
+                             is_primary, shard_slice, sum_gradients)
 from ..utils.checkpoint import save_baseline_checkpoint
 from ..utils.images import save_image_grid
+from .loop import (WriteCadence, padded_split, seeded_generator, to_device,
+                   zero_nonfinite_grads_)
 from .state import make_optimizer
-from .vae_engine import seeded_generator, to_device
 
 METRIC_KEYS = ("loss", "rec", "vq", "q_mse", "perplex", "usage", "dead")
 
@@ -109,10 +110,6 @@ class VQVAEEngine:
                            device=self.device)
         return cb, bank
 
-    def local_rows(self, n: int) -> slice:
-        """This rank's rows of a global batch of ``n`` rows."""
-        return slice(*shard_range(n, self.mesh))
-
     # -- steps ---------------------------------------------------------------
     def _forward(self, cb: CodebookState, x: torch.Tensor,
                  mask: torch.Tensor):
@@ -159,7 +156,7 @@ class VQVAEEngine:
         ``mask`` (B,); ``generator`` draws the bank's latents on its own
         device. ``rows`` (start, global rows): ``x`` holds rows
         ``start:start + B`` of a global batch, as under data parallelism,
-        where it must be given (``local_rows``); None means ``x`` is the
+        where it must be given (``shard_slice``); None means ``x`` is the
         whole batch. Returns (codebook, bank, metrics)."""
         if rows is None:
             if self.mesh.world_size > 1:
@@ -175,11 +172,10 @@ class VQVAEEngine:
         sum_gradients(self.model.parameters(), self.mesh)
         metrics = self._metrics(*out)
         finite = torch.isfinite(loss.detach())
-        with torch.no_grad():
-            for p in self.model.parameters():
-                # real zeros: torch's Adam skips a parameter without .grad
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                p.grad = torch.where(finite, g, torch.zeros_like(g))
+        for p in self.model.parameters():
+            if p.grad is None:  # torch's Adam skips a parameter without one
+                p.grad = torch.zeros_like(p)
+        zero_nonfinite_grads_(finite, self.model.parameters())
         self.opt.step()
 
         with torch.no_grad():
@@ -224,17 +220,9 @@ class VQVAEEngine:
         """The split mapped to [-1, 1] once, zero-padded to a whole number
         of steps, on the device: (images, mask, steps, padded rows)."""
         x = loader.split.denormalize(loader.split.images).astype(np.float32)
-        x = x * 2.0 - 1.0
-        n = x.shape[0]
-        n_steps = max(1, (n + batch_size - 1) // batch_size)
-        n_pad = n_steps * batch_size
-        mask = np.zeros((n_pad,), np.float32)
-        mask[:n] = 1.0
-        if n_pad > n:
-            x = np.concatenate([x, np.zeros((n_pad - n, *x.shape[1:]),
-                                            np.float32)])
-        return (to_device(x, self.device), to_device(mask, self.device),
-                n_steps, n_pad)
+        (x,), mask, n_steps, n_pad = padded_split([x * 2.0 - 1.0],
+                                                  batch_size, self.device)
+        return x, mask, n_steps, n_pad
 
     def train_epoch(self, cb, bank, data, mask_all, n_steps: int,
                     batch_size: int, epoch: int):
@@ -245,7 +233,7 @@ class VQVAEEngine:
         perm = torch.randperm(n_steps * batch_size, generator=gen,
                               device=self.device)
         sums = torch.zeros(len(METRIC_KEYS) + 1, device=self.device)
-        mine = self.local_rows(batch_size)
+        mine = shard_slice(batch_size, self.mesh)
         rows = (mine.start, batch_size)
         for i in range(n_steps):
             ib = perm[i * batch_size:(i + 1) * batch_size][mine]
@@ -258,7 +246,7 @@ class VQVAEEngine:
     def eval_epoch(self, cb, data, mask_all, n_steps: int,
                    batch_size: int) -> torch.Tensor:
         sums = torch.zeros(len(METRIC_KEYS) + 1, device=self.device)
-        mine = self.local_rows(batch_size)
+        mine = shard_slice(batch_size, self.mesh)
         for i in range(n_steps):
             sl = slice(i * batch_size + mine.start,
                        i * batch_size + mine.stop)
@@ -299,7 +287,7 @@ class VQVAEEngine:
         tr_data, tr_mask, tr_steps, _ = self.device_dataset(train_loader, bs)
         va_data, va_mask, va_steps, _ = self.device_dataset(val_loader, bs)
         best_loss = float("inf")
-        save_stride, write_est = 1, 0.0
+        cadence = WriteCadence()
         for ep in range(1, num_epochs + 1):
             t_ep = time.perf_counter()
             cb, bank, tr_sums = self.train_epoch(cb, bank, tr_data, tr_mask,
@@ -331,14 +319,12 @@ class VQVAEEngine:
                     and is_primary()):
                 self.save_recons(cb, val_loader, Path(output_dir), ep)
             dt_epoch = time.perf_counter() - t_ep
-            if checkpoint_dir is not None and (ep % save_stride == 0
+            if checkpoint_dir is not None and (ep % cadence.stride == 0
                                                or ep == num_epochs):
                 t_ck = time.perf_counter()
                 save_baseline_checkpoint(Path(checkpoint_dir) / "latest.pt",
                                          self.model, self.opt, cb, ep)
-                write_est = max(time.perf_counter() - t_ck, 0.7 * write_est)
-                save_stride = max(1, min(
-                    25, int(write_est / max(dt_epoch, 1e-3))))
+                cadence.record(time.perf_counter() - t_ck, dt_epoch)
             if checkpoint_dir is not None and te["loss"] < best_loss:
                 best_loss = te["loss"]
                 save_baseline_checkpoint(Path(checkpoint_dir) / "best.pt",
